@@ -1,11 +1,11 @@
-"""chargeflux_tpu — TPU-native charge-flux electrostatics engine.
+"""chargeflux_tpu — charge-flux electrostatics engine in JAX.
 
-A standalone JAX/XLA/Pallas rebuild of the capabilities of the
-openmm-chargeflux plugin (geometry-dependent charges with analytic
-charge-flux forces, Ewald electrostatics, LJ, exclusions), designed
-TPU-first: the whole energy/force step is one jit-compiled function,
-reciprocal-space structure factors are MXU matmuls, the direct-space sum is
-a fixed-capacity cell list, and scale-out goes through jax.sharding meshes.
+A standalone JAX/XLA rebuild of the capabilities of the openmm-chargeflux
+plugin (geometry-dependent charges with analytic charge-flux forces, Ewald
+electrostatics, LJ, exclusions): the whole energy/force step is one
+jit-compiled function, the reciprocal space is smooth particle-mesh Ewald
+(classical Ewald as one GEMM for f64 parity), the direct-space sum is a
+fixed-capacity cell list, and scale-out goes through jax.sharding meshes.
 """
 
 from .system import ChargeFluxSystem, CoulForce, StaticSpec, ewald_alpha, ewald_kmax

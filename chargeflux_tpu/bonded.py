@@ -9,7 +9,7 @@ theta0)^2, with forces from jax.grad like everything else.
 Like the flux terms (charges.py), bonded indices almost always repeat
 per-molecule; ``BondedParams.create`` detects the template (topology.py) and
 ``bonded_energy`` then evaluates on [n_mol, atoms_per_mol, 3] reshapes with
-static slices — no gathers/scatters (which cost ~7-15 ns/element on TPU).
+static slices — no gathers/scatters.
 """
 
 from __future__ import annotations
@@ -120,8 +120,8 @@ def bonded_energy(positions: jax.Array, bonded: "BondedParams") -> jax.Array:
     n_a = bonded.angle_idx.shape[0] - a0
     if n_b + n_a > 0:
         # remainder bonds+angles share ONE position gather: per-kind
-        # gathers each break fusion into separate TPU kernels whose
-        # boundary overhead dominates at solute sizes (hetero_ab, r3)
+        # gathers each break fusion into separate kernels whose boundary
+        # overhead dominates at solute sizes
         bi = bonded.bond_idx[b0:]
         ai = bonded.angle_idx[a0:]
         p_all = positions[jnp.concatenate([bi.reshape(-1),

@@ -1,23 +1,21 @@
-"""Fixed-capacity cell list for the periodic direct-space sum — TPU-first.
+"""Fixed-capacity cell list for the periodic direct-space sum.
 
 Replaces the reference's runtime neighbor-list services — the CPU voxel hash
 rebuilt every step (ReferenceCoulKernels.cpp:559) and OpenMM's CUDA
 tile/interacting-blocks machinery (CudaCoulKernels.cpp:422;
-PBCForce.cu:86-751) — with a TPU-native scheme:
+PBCForce.cu:86-751) — with a static-shape scheme inside the jit program:
 
 * static cell grid (>= 3 cells per axis, cell edge >= cutoff) baked into the
   trace (system.spec.cell_grid/capacity);
-* atoms binned by sort + rank, scattered into a dense [n_cells, capacity]
-  slot array (sentinel = N for empty slots) — static shapes, rebuilt every
-  step *inside* the jit program (a sort + scatter is cheap on TPU);
+* atoms binned by one-hot rank, scattered into a dense [n_cells, capacity]
+  slot array (sentinel = N for empty slots) — static shapes, rebuilt
+  *inside* the jit program;
 * **half-shell** traversal: the self shift with i<j plus 13 lexicographically
-  positive neighbor shifts — every pair visited exactly once (the TPU analog
-  of the CUDA warp-tile diagonal scheme, PBCForce.cu:24-62);
-* **matmul distances**: positions are wrapped into the box, and for each
+  positive neighbor shifts — every pair visited exactly once (the cell
+  analog of the CUDA warp-tile diagonal scheme, PBCForce.cu:24-62);
+* static image offsets: positions are wrapped into the box, and for each
   (cell, shift) the periodic image offset is a *static* table entry, so the
-  minimum image needs no per-pair floor().  With cell-centered coordinates,
-  r^2 = |xi|^2 + |xj|^2 - 2 xi.xj — the cross term is a batched [cap,3]x
-  [3,cap] matmul on the MXU and no [.,.,.,3] delta tensor is materialized;
+  minimum image needs no per-pair floor();
 * erfc via the fast f32 polynomial (ops/erfc.py) on the production path.
 
 Like the CUDA path (USE_EXCLUSIONS disabled, CudaCoulKernels.cpp:484), the
@@ -177,9 +175,9 @@ def rank_into_slots(col, cz, owned, n, ncol, gz, capacity):
         #   B) rank within z-cells on the staged layout via a
         #      [ncol, gz*cap, gz] one-hot cumsum.
         # Cuts the one-hot work from O(N * n_cells) to O(N * ncol +
-        # n_slots * gz): measured 0.93 vs 1.19 ms at 30k and 3.3 vs 8.4 ms
-        # at 100k vs the flat [N, n_cells] one-hot (and XLA's device sort
-        # is slower still: 3.6 / 13.2 ms).  Slot layout is identical.
+        # n_slots * gz) against the flat [N, n_cells] one-hot.  Slot
+        # layout is identical.  (A device sort is the other way to rank;
+        # which is faster on the card awaits an A/B.)
         scap = gz * capacity
         onehot_a = ((col[:, None] == jnp.arange(ncol)[None, :])
                     & owned[:, None]).astype(jnp.int32)
@@ -312,10 +310,10 @@ def _pair_block_energy(pos_i, ni, q_i, hs_i, se_i, mask_i,
     """Masked pair energy between an i-block [C, cap, 3] and a j-block
     [C, cap, 3] of cell-centered coordinates.
 
-    r^2 is accumulated per component as broadcast VPU arithmetic — a K=3
-    contraction would waste the 128-wide MXU, and componentwise XLA fuses the
-    subtract/square/add chain without materializing a [C, cap, cap, 3]
-    tensor.  (ni is accepted for API symmetry but recomputed implicitly.)"""
+    r^2 is accumulated per component as broadcast elementwise arithmetic
+    — a K=3 contraction gains nothing from a matrix unit, and componentwise
+    XLA fuses the subtract/square/add chain without materializing a
+    [C, cap, cap, 3] tensor.  (ni is accepted for API symmetry but recomputed implicitly.)"""
     del ni
     r2 = 0.0
     for k in range(3):
@@ -447,8 +445,8 @@ def gather_rows(table, flat, inv):
     (sentinel R-1 allowed), ``inv`` [R-1] the inverse mapping (row -> output
     position, sentinel >= S for rows that appear nowhere).  Forward is one
     row gather; backward gathers cotangent rows by ``inv`` instead of
-    scatter-adding (valid because flat is a permutation; 7-17x faster on
-    TPU).  Defined at module level with the index arrays as explicit
+    scatter-adding (valid because flat is a permutation: a gather where a
+    scatter-add would otherwise accumulate).  Defined at module level with the index arrays as explicit
     arguments (float0 cotangents): a custom_vjp whose fwd/bwd close over
     forward-trace tracers breaks under the shard_map transpose.
     """
@@ -474,9 +472,8 @@ def blockify(positions: jax.Array, q: jax.Array, system, slots: jax.Array,
              inv_slot: jax.Array, wrap: jax.Array = None):
     """Gather atom data into cell-major blocks with a hand-written VJP.
 
-    TPU gathers are ~50x faster when they move contiguous lane-aligned rows
-    than when they move scalar columns (measured, tools/microbench.py
-    'gathers'), so both directions move ONE [*, 8] row table:
+    Both directions move ONE [*, 8] row table (one row gather instead of
+    a gather per scalar column):
 
     * forward — gather the padded [N+1, 8] atom table (x y z q hs se 0 0)
       by slot -> atom;
@@ -708,11 +705,10 @@ def _concat_slabs(blocks: CellBlocks, ids: jax.Array, system,
     Returns (xj [3 arrays of [gx,gy,gz,14*cap]], qj, hj, sj, idsj).  Slab 0
     is the (unrolled) self cell; slabs 1..13 are ``jnp.roll`` of the block
     arrays by the half-shell shifts, with the static boundary image offsets
-    added to the coordinates.  The point of ``walk_layout="concat"``: the
-    pair tile's j axis pads to the 128 vector lanes, so 14 separate
-    [cap, cap] tiles pay 14 * (128 - cap) lanes of padding when cap < 128,
-    while one [cap, 14*cap] tile pays it once (BASELINE.md cutoff-scan
-    postmortem — this is what un-deadens the finer-cutoff configs)."""
+    added to the coordinates.  The point of ``walk_layout="concat"``: when
+    the pair tile's j axis pads to a hardware tile width, 14 separate
+    [cap, cap] tiles pay that padding 14 times, while one [cap, 14*cap]
+    tile pays it once.  Which layout the card prefers awaits an A/B."""
     spec = system.spec
     gx, gy, gz = spec.cell_grid
     dtype = blocks.x.dtype
@@ -756,11 +752,9 @@ def _concat_tile(comp, qc, hc, sc, ids, xj, qj, hj, sj, idsj, system,
     alpha = spec.alpha
     cutoff2 = spec.cutoff * spec.cutoff
 
-    # The walk is pure VPU elementwise math by measurement: MXU-offload
-    # variants (gradient contractions as w@xj matmuls; r^2 via a
-    # re-centered cross dot) measured 2.81 / 3.85 ms fused-tile vs 1.48
-    # for this form at the 30k shapes and were deleted (BASELINE.md,
-    # round-3 A/B; git history holds the implementations).
+    # The walk is pure elementwise math (variants that moved the gradient
+    # contractions or the r^2 cross term into matmuls were deleted; git
+    # history holds them).
     dx = comp[0][..., :, None] - xj[0][..., None, :]
     dy = comp[1][..., :, None] - xj[1][..., None, :]
     dz = comp[2][..., :, None] - xj[2][..., None, :]
@@ -891,10 +885,7 @@ def direct_energy_on_blocks(blocks: CellBlocks, ids: jax.Array,
 
     ``ids`` is an explicit custom_vjp argument with a float0 cotangent
     (NOT a closure): fwd/bwd closing over forward-trace *index* tracers
-    breaks under the shard_map transpose (repo rule; see gather_rows).
-    The XLA roll walk is the measured winner on TPU: a hand Mosaic
-    fused-walk kernel lost 2.2 vs 1.65 ms standalone and 3.76 vs 3.65 ms
-    in the full 30k MD step (BASELINE.md rejected experiments)."""
+    breaks under the shard_map transpose (repo rule; see gather_rows)."""
 
     layout = system.spec.walk_layout
     concat = layout.startswith("concat")

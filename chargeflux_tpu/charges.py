@@ -1,6 +1,6 @@
 """Geometry-dependent effective charges q(x) and their analytic Jacobian.
 
-This is the TPU-native replacement for the reference's charge-flux update —
+This is the JAX replacement for the reference's charge-flux update —
 ``updateRealCharge`` (ReferenceCoulKernels.cpp:37-228) and the CUDA
 ``calcRealCharge`` kernel (calcChargeFlux.cu:29-289).
 
@@ -77,8 +77,7 @@ def _template_dq_flat(positions: jax.Array, system: ChargeFluxSystem,
 
     Atom data reshapes to [C, s, 3]; every term indexes molecule slots with
     *static* slices, so neither the forward nor the autodiff backward emits
-    a gather/scatter (measured ~10x faster than the scatter path on TPU v5e
-    at 30k atoms).  ``starts`` holds the per-kind row cursor into the
+    a gather/scatter.  ``starts`` holds the per-kind row cursor into the
     molecule-major-permuted term arrays and is advanced in place.  Same
     formulas as the general path below — cross-checked in
     tests/test_charges.py.
@@ -166,10 +165,8 @@ def _scatter_flux(q: jax.Array, positions: jax.Array,
     without one it covers every row.  All kinds share ONE position gather
     and ONE ``at[].add`` scatter (deterministic under XLA, replacing the
     reference's charge atomics, calcChargeFlux.cu:70-94): gathers,
-    scatters and reductions each break XLA fusion into separate TPU
-    kernels, and per-kind chains cost ~0.4 ms/step of kernel-boundary
-    overhead on a 30k hetero box even for a 24-atom solute (measured,
-    tools/hetero_ab.py round 3)."""
+    scatters and reductions each break XLA fusion into separate kernels,
+    so per-kind chains would pay one kernel boundary per kind."""
     box, pbc = system.box, system.spec.pbc
 
     bi = system.bond_idx[b0:]
@@ -241,9 +238,7 @@ def effective_charges(positions: jax.Array, system: ChargeFluxSystem) -> jax.Arr
     path (:func:`_template_dq_flat`; the blocks are non-overlapping and
     offset-sorted, so q assembles as one concatenation) and only the
     remainder rows — the solute in a solvated system — pay the scatter
-    path (:func:`_scatter_flux`).  (A build-time-sorted segment_sum
-    variant was measured slower on v5e: the permutation gather costs more
-    than the duplicate-index scatter saves.)
+    path (:func:`_scatter_flux`).
     """
     dtype = positions.dtype
     q = system.q0.astype(dtype)
@@ -251,10 +246,6 @@ def effective_charges(positions: jax.Array, system: ChargeFluxSystem) -> jax.Arr
     if ts is None:
         return _scatter_flux(q, positions, system)
 
-    # (an optimization_barrier around the remainder path — decoupling its
-    # op structure from the scan carry's layout — measured a LOSS: s8
-    # 3.46 vs 3.39 ms, round-3 A/B; the residual hetero scan-boundary
-    # cost needs a different intervention, see BASELINE.md round-4 lead)
     starts = {"bonds": 0, "angles": 0, "waters": 0}
     pieces = []
     cursor = 0

@@ -6,7 +6,7 @@ an L0 service of its host framework (OpenMM SETTLE/CCMA — SURVEY §1 L0),
 so a standalone engine must ship them: rigid water is how production MD
 buys the 2 fs whole-step the flexible models cannot take.
 
-TPU-first design: rigid waters live in the contiguous ``[n_mol, 3, 3]``
+Design: rigid waters live in the contiguous ``[n_mol, 3, 3]``
 template layout (topology.py) — static slices, no gathers.  The three
 coupled bond constraints per molecule form a 3x3 Lagrange system solved
 by Newton iteration with a closed-form (adjugate) 3x3 inverse: a fixed,
@@ -93,12 +93,13 @@ def _mass_coupling(inv_m):
     the mass metric coupling bond k's constraint to bond l's impulse.
     Pure jnp (inv_m may be traced under jit)."""
     s = jnp.asarray(_S, inv_m.dtype)
-    return (s * inv_m[None, :]) @ s.T
+    return jnp.matmul(s * inv_m[None, :], s.T,
+                      precision=jax.lax.Precision.HIGHEST)
 
 
 def _solve33(a, b):
     """Batched closed-form 3x3 solve via the adjugate (no LAPACK calls —
-    straight vector arithmetic, fuses under jit on TPU).  a [M,3,3],
+    straight vector arithmetic that fuses under jit).  a [M,3,3],
     b [M,3] -> [M,3]."""
     c00 = a[:, 1, 1] * a[:, 2, 2] - a[:, 1, 2] * a[:, 2, 1]
     c01 = a[:, 1, 2] * a[:, 2, 0] - a[:, 1, 0] * a[:, 2, 2]
@@ -129,12 +130,10 @@ def _displace(lam, d_ref, inv_m):
 
 # --- structure-of-arrays projection core ------------------------------------
 # The projection math lives on [M]-shaped per-(site, coordinate) arrays:
-# an [M, 3, 3] layout puts (3, 3) on the TPU's (8 sublanes, 128 lanes)
-# tile, so EVERY elementwise op in the Newton loop pays ~113x padding —
-# the rigid 30k bench measured 12.4 ms/step with ~8 ms unattributed,
-# which is exactly this tax across the ~12 projection stages per BAOAB
-# step.  SoA [M] vectors tile densely; AoS<->SoA conversion happens once
-# per projection (one transpose each way).
+# an [M, 3, 3] layout puts the (3, 3) minor dims on the device's tiled
+# layout, where every elementwise op in the Newton loop pays the padding
+# of that tile.  SoA [M] vectors tile densely; AoS<->SoA conversion
+# happens once per projection (one transpose each way).
 
 
 def _soa_view(x, params):
@@ -209,7 +208,7 @@ class DistanceConstraints:
     ``constraints=HBonds``-style L0 service for topologies that are not
     contiguous 3-site waters (solute X-H bonds, mixed systems).
 
-    TPU-first shape: one Jacobi-SHAKE sweep is a [C]-vector update (one
+    Shape: one Jacobi-SHAKE sweep is a [C]-vector update (one
     row gather of each endpoint, one scatter-add of the impulses —
     deterministic under XLA), iterated a *fixed* ``n_iter`` times so the
     whole projection is straight-line code under jit; non-convergence
@@ -319,9 +318,8 @@ def _shake_velocities(x, v_unc, p: DistanceConstraints, tol=None):
 # SAME SHAKE equations; SETTLE is the analytic solution, so they agree
 # to machine precision (tests pin it) — the knob is purely a speed
 # choice.  Module-level for the same reason as integrate.PACKED_CARRY_MODE.
-# Default "settle": measured equal-or-faster at both rigid bench configs
-# (rc08 4.283 vs 4.299, rc072g8 3.231 vs 3.248 ms — /tmp/r4b_rigid_rc_ab
-# .log, Aug 21) and closed-form (no residual-poison branch to schedule).
+# Default "settle": closed-form (no iteration, no residual-poison branch
+# to schedule); its speed against "newton" on the card awaits an A/B.
 RIGID_PROJECTION = "settle"
 
 
@@ -346,7 +344,7 @@ def settle_positions(x_old, x_unc, params: RigidWaterParams):
     the result matches the converged Newton solve to machine precision
     (tests/test_constraints.py pins f64 parity).
 
-    TPU-first shape: the rotation (phi, psi, theta) is straight-line
+    Shape: the rotation (phi, psi, theta) is straight-line
     [M]-vector arithmetic on the SoA site components — no iteration, so
     one projection costs ~1/4 of the 4-sweep Newton path.  Requires the
     isoceles OH1 == OH2 geometry ``RigidWaterParams.create`` produces.

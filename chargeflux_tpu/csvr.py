@@ -11,7 +11,7 @@ default the reference plugin's users would reach for around it
 (GROMACS ``v-rescale``; openmmtools exposes it too) — the reference
 itself ships no integrators at all (SURVEY §1 L0).
 
-TPU-native shape: the rescale is two scalar random draws + one
+Shape: the rescale is two scalar random draws + one
 multiply of the packed velocity block per step — it composes with the
 packed ``[N, 9]`` nb-reuse scan carry (integrate.make_packed_nve_chunk)
 with no extra [N, 3] carries.  The chi-squared draw uses

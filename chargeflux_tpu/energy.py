@@ -166,9 +166,8 @@ def _exclusion_correction(positions, q, system: ChargeFluxSystem,
                                         system.exclusions.shape[0])
     if e0 < system.exclusions.shape[0]:
         # ONE fused gather for (x, q, sigma, eps) per pair end: per-column
-        # gathers each break fusion into a separate TPU kernel and the
-        # kernel-boundary overhead dominates for solute-sized remainders
-        # (tools/hetero_ab.py, round 3)
+        # gathers each break fusion into a separate kernel, and for
+        # solute-sized remainders the kernel boundaries dominate
         dtype = positions.dtype
         idx_flat = system.exclusions[e0:].reshape(-1)        # [2E]
         table = jnp.concatenate(
@@ -185,6 +184,24 @@ def _exclusion_correction(positions, q, system: ChargeFluxSystem,
         total = total + _excl_pair_energy(r, inv_r, qq, half_sig, eps, spec,
                                           subtract_direct)
     return total
+
+
+def resolve_recip_method(spec, dtype) -> str:
+    """The reciprocal route an energy evaluation takes: ``"pme"`` or
+    ``"xla"`` (classical Ewald).  The single-device engine and the halo
+    route (parallel/halo.py) both ask here, so they cannot disagree.
+
+    An explicit ``spec.recip_method`` stands.  ``"auto"`` picks PME for
+    f32 on the cell route (the cell-blocked spread reuses the direct
+    walk's blocks) and classical Ewald otherwise: f32 on the dense route
+    (small boxes, where the k-space sum is a few GEMMs) and every f64
+    evaluation (parity with the oracle's classical sum)."""
+    if spec.recip_method != "auto":
+        return spec.recip_method
+    if (jnp.dtype(dtype) == jnp.float32 and spec.direct_method == "cell"
+            and spec.pme_grid is not None):
+        return "pme"
+    return "xla"
 
 
 def energy_components_fixed_charges(positions: jax.Array, q: jax.Array,
@@ -241,11 +258,8 @@ def energy_components_fixed_charges(positions: jax.Array, q: jax.Array,
         edge = (plane_widths(system.box)
                 / jnp.asarray(spec.cell_grid, positions.dtype))
         bad = (overflow > 0) | jnp.any(edge < spec.cutoff)
-        if nb is not None and spec.pme_grid is not None and (
-                spec.recip_method == "pme"
-                or (spec.recip_method == "auto"
-                    and jax.default_backend() == "tpu"
-                    and positions.dtype == jnp.float32)):
+        if nb is not None and (
+                resolve_recip_method(spec, positions.dtype) == "pme"):
             # PME patch-slack safety under the traced box: pme_slack was
             # sized from the CREATION-time skin (system.py), but drift
             # between rebuilds is bounded by the CURRENT skin/2 — under
@@ -279,46 +293,21 @@ def energy_components_fixed_charges(positions: jax.Array, q: jax.Array,
     # -- reciprocal space ----------------------------------------------------
     if not include_recip:
         return comps
-    recip_method = spec.recip_method
-    if recip_method == "auto":
-        # On TPU f32: the cell-blocked PME spread (shares the direct walk's
-        # block gather, no scatters) when the cell route is active.  On the
-        # dense route, the fused classical-Ewald Pallas kernel wins only
-        # while the k-space is small (216-water: 0.020 vs 0.055 ms); at a
-        # 4k box's kmax 13^3 the XLA factorized matmuls are ahead (0.93 vs
-        # 1.08) — gate on the half-space k-vector count.  Elsewhere (CPU
-        # tests, f64 parity vs the oracle's classical sum) the XLA path.
-        if jax.default_backend() == "tpu" and positions.dtype == jnp.float32:
-            if blocks is not None:
-                recip_method = "pme"
-            else:
-                kx, ky, kz = spec.kmax
-                n_k = kx * (2 * ky - 1) * (2 * kz - 1)
-                recip_method = "pallas" if n_k < 4000 else "xla"
-        else:
-            recip_method = "xla"
+    recip_method = resolve_recip_method(spec, positions.dtype)
     with phase_scope("cf_reciprocal"):
         if recip_method == "pme":
-            from .pme import (_pallas_spread_ok,
-                              pme_cell_pallas_reciprocal_energy,
-                              pme_cell_reciprocal_energy,
-                              pme_reciprocal_energy)
+            from .pme import pme_cell_reciprocal_energy, pme_reciprocal_energy
 
             if blocks is not None:
-                if _pallas_spread_ok(spec, positions.dtype):
-                    comps["reciprocal"] = pme_cell_pallas_reciprocal_energy(
-                        blocks, ids, system)
-                else:
-                    comps["reciprocal"] = pme_cell_reciprocal_energy(
-                        blocks, ids, system)
+                comps["reciprocal"] = pme_cell_reciprocal_energy(
+                    blocks, ids, system)
             else:
                 comps["reciprocal"] = pme_reciprocal_energy(
                     positions, q, system.box, spec.alpha, spec.pme_grid,
                     spec.pme_order)
         else:
             comps["reciprocal"] = reciprocal_energy(positions, q, system.box,
-                                                    spec.alpha, spec.kmax,
-                                                    method=recip_method)
+                                                    spec.alpha, spec.kmax)
     return comps
 
 
@@ -367,8 +356,8 @@ def _forces_manual(positions: jax.Array, system: ChargeFluxSystem) -> jax.Array:
 
 
 # Public API: jit-compiled by default.  The system pytree's StaticSpec is
-# hashable metadata, so jit specializes per (shapes, spec) — the TPU analog of
-# the reference's per-system NVRTC kernel JIT (CudaCoulKernels.cpp:377-516).
+# hashable metadata, so jit specializes per (shapes, spec) — the analog of the
+# reference's per-system NVRTC kernel JIT (CudaCoulKernels.cpp:377-516).
 
 #: Total potential energy (kJ/mol).
 energy = jax.jit(_energy)

@@ -1,18 +1,18 @@
-"""Ewald summation, TPU-first.
+"""Ewald summation.
 
 Replaces the reference's brute-force O(N*K) reciprocal loop
-(ReferenceCoulKernels.cpp:519-556; CUDA PBCForce.cu:841-950) with a
-*factorized structure-factor* formulation that maps onto the MXU:
+(ReferenceCoulKernels.cpp:519-556; CUDA PBCForce.cu:841-950, one thread per
+k-vector) with a *factorized structure-factor* formulation that is one GEMM:
 
     S(k) = sum_i q_i e^{i k.x_i},   k = 2*pi*(nx/Lx, ny/Ly, nz/Lz)
 
 factorizes as e^{i k.x} = Ex_i(nx) * Ey_i(ny) * Ez_i(nz).  We build per-axis
 phase tables (O(N*(Kx+Ky+Kz)) transcendentals instead of O(N*K)), combine the
 x/y tables elementwise, and contract over atoms with a single complex matmul
-[Kx*Ky, N] @ [N, Kz] — all MXU work.  Forces come from jax.grad: the VJP of a
-matmul is a matmul, so the reciprocal force pass (the reference's
-computeEwaldRecForce, PBCForce.cu:891-950) is *derived*, not hand-written, and
-stays on the MXU.
+[Kx*Ky, N] @ [N, 2Kz], which XLA hands to the GEMM library.  Forces come from
+jax.grad: the VJP of a matmul is a matmul, so the reciprocal force pass (the
+reference's computeEwaldRecForce, PBCForce.cu:891-950) is *derived*, not
+hand-written, and is matrix products too.
 
 Half-space enumeration parity: the reference sums kx in [0,kmax), with only a
 half (ky,kz)-plane when kx==0 (the minky/minkz trick,
@@ -39,6 +39,20 @@ from .pairs import box_volume, frac_coords, reciprocal_metric
 from .units import ONE_4PI_EPS0, SQRT_PI
 
 
+#: Algorithm of every accuracy-relevant f32 dot (the structure-factor
+#: GEMM here, the PME spreads in pme.py): three bf16 products with f32
+#: accumulation, about f32 accuracy.  A dot left at the default precision
+#: may run in a reduced-precision mode (TF32 on the GPU's tensor cores),
+#: which spends the 1e-4 force-RMSE budget (tests/test_pme.py).
+F32_DOT_PRECISION = jax.lax.DotAlgorithmPreset.BF16_BF16_F32_X3
+
+
+def dot_precision(dtype):
+    """``precision=`` for an accuracy-relevant dot in ``dtype``: the
+    pinned f32 algorithm, or the default (exact) for f64."""
+    return F32_DOT_PRECISION if jnp.dtype(dtype) == jnp.float32 else None
+
+
 def kvector_grid(kmax: Tuple[int, int, int]):
     """Static (numpy, trace-time) k-space integer grid and weights.
 
@@ -57,7 +71,7 @@ def kvector_grid(kmax: Tuple[int, int, int]):
 
 
 def structure_factors(positions: jax.Array, q: jax.Array, box: jax.Array,
-                      kmax: Tuple[int, int, int], method: str = "xla"):
+                      kmax: Tuple[int, int, int]):
     """Structure factors S(k) = sum_i q_i e^{i k.x_i} over the weighted
     half-space grid, as (s_cos, s_sin) each [Kx*Ky, Kz].
 
@@ -65,10 +79,6 @@ def structure_factors(positions: jax.Array, q: jax.Array, box: jax.Array,
     *additive over atoms*, so a sharded engine computes it on an atom chunk
     and psums the result (SURVEY §2: replicated-k reciprocal sum with psum of
     structure factors).
-
-    method="pallas" routes the contraction through the fused Pallas kernel
-    (ops/pallas_recip.py), which builds the combined [Kx*Ky, n] phase tiles
-    in VMEM instead of materializing them in HBM.
     """
     dtype = positions.dtype
     nx, ny, nz, _ = kvector_grid(kmax)
@@ -79,7 +89,7 @@ def structure_factors(positions: jax.Array, q: jax.Array, box: jax.Array,
     # Fractional coordinates wrapped into [0, 1): improves phase accuracy in
     # f32 and leaves the (periodic) energy unchanged; floor has zero grad.
     # e^{i k.x} = e^{2 pi i n.f} factorizes per axis in *fractional* space
-    # for any lattice — the same MXU-factorized contraction serves triclinic
+    # for any lattice — the same factorized contraction serves triclinic
     # boxes (an extension; the reference is orthorhombic-only).
     frac = frac_coords(positions, box)
     frac = frac - jax.lax.stop_gradient(jnp.floor(frac))
@@ -90,42 +100,6 @@ def structure_factors(positions: jax.Array, q: jax.Array, box: jax.Array,
     cx, sx = jnp.cos(phx), jnp.sin(phx)
     cy, sy = jnp.cos(phy), jnp.sin(phy)
     cz, sz = jnp.cos(phz), jnp.sin(phz)
-
-    if method == "pallas":
-        if dtype != jnp.float32:
-            raise ValueError(
-                "recip_method='pallas' is an f32 TPU kernel and would "
-                f"silently degrade a {dtype} system's ~1e-10 parity "
-                "contract; use 'xla' (or 'pme') for f64 work")
-        from .ops.pallas_recip import make_structure_factor_fn, _ceil_to
-
-        n_at = positions.shape[0]
-        kz = len(nz)
-        ky_real = len(ny)
-        ky_pad = _ceil_to(ky_real, 8)
-        sf_fn, n_pad = make_structure_factor_fn(kmax, n_at)
-        zq = q[:, None] * jnp.concatenate([cz, sz], axis=1)
-        padn = n_pad - n_at
-
-        def padded(tbl_t):
-            return jnp.pad(tbl_t, ((0, 0), (0, padn))) if padn else tbl_t
-
-        def padded_y(tbl_t):
-            return jnp.pad(tbl_t, ((0, ky_pad - ky_real), (0, padn)))
-
-        a, b = sf_fn(padded(cx.T.astype(jnp.float32)),
-                     padded(sx.T.astype(jnp.float32)),
-                     padded_y(cy.T.astype(jnp.float32)),
-                     padded_y(sy.T.astype(jnp.float32)),
-                     jnp.pad(zq.astype(jnp.float32), ((0, padn), (0, 0)))
-                     if padn else zq.astype(jnp.float32))
-        # drop the padded ky rows: [Kx*Ky_pad, 2Kz] -> [Kx*Ky_real, 2Kz]
-        kx_n = len(nx)
-        a = a.reshape(kx_n, ky_pad, 2 * kz)[:, :ky_real].reshape(-1, 2 * kz)
-        b = b.reshape(kx_n, ky_pad, 2 * kz)[:, :ky_real].reshape(-1, 2 * kz)
-        s_cos = (a[:, :kz] - b[:, kz:]).astype(dtype)
-        s_sin = (b[:, :kz] + a[:, kz:]).astype(dtype)
-        return s_cos, s_sin
 
     # Combine x and y phases, weighting by charge on the atom axis.
     # cxy/sxy: [N, Kx, Ky] -> [N, Kx*Ky]
@@ -138,19 +112,11 @@ def structure_factors(positions: jax.Array, q: jax.Array, box: jax.Array,
     sxy = (qcol * sxy.reshape(n_at, kxy))
 
     # Structure factors: S = sum_i (cxy + i sxy)(cz + i sz) -> two real parts.
-    # [Kx*Ky, Kz] each; contraction over atoms rides the MXU.  The z factors
-    # are concatenated so each large [N, Kx*Ky] operand streams through the
-    # MXU exactly once (2 matmuls instead of 4 -> half the HBM traffic).
-    #
-    # Precision is set EXPLICITLY: JAX's default f32 matmul on TPU downcasts
-    # to bf16, which costs 3.8e-3 relative force error (38x the 1e-4 RMSE
-    # budget) — measured vs f64.  BF16_BF16_F32_X3 restores 1.6e-5 at *lower*
-    # cost than the default (6.7 vs 8.8 ms at 30k atoms).
-    if dtype == jnp.float32:
-        prec = jax.lax.DotAlgorithmPreset.BF16_BF16_F32_X3
-    else:
-        prec = None
-    dot = partial(jnp.matmul, preferred_element_type=dtype, precision=prec)
+    # [Kx*Ky, Kz] each; the contraction over atoms is a GEMM.  The z factors
+    # are concatenated so each large [N, Kx*Ky] operand is read exactly once
+    # (2 matmuls instead of 4 -> half the memory traffic).
+    dot = partial(jnp.matmul, preferred_element_type=dtype,
+                  precision=dot_precision(dtype))
     cz_sz = jnp.concatenate([cz, sz], axis=1)           # [N, 2*Kz]
     kz = len(nz)
     a = dot(cxy.T, cz_sz)                               # [Kxy, 2*Kz]
@@ -194,10 +160,9 @@ def reciprocal_energy_from_sf(s_cos: jax.Array, s_sin: jax.Array,
 
 
 def reciprocal_energy(positions: jax.Array, q: jax.Array, box: jax.Array,
-                      alpha: float, kmax: Tuple[int, int, int],
-                      method: str = "xla") -> jax.Array:
+                      alpha: float, kmax: Tuple[int, int, int]) -> jax.Array:
     """Reciprocal-space Ewald energy via factorized complex matmuls."""
-    s_cos, s_sin = structure_factors(positions, q, box, kmax, method=method)
+    s_cos, s_sin = structure_factors(positions, q, box, kmax)
     return reciprocal_energy_from_sf(s_cos, s_sin, box, alpha, kmax)
 
 

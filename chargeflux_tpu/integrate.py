@@ -64,9 +64,8 @@ def make_nb_energy_fn(system, bonded=None, guard: bool = True):
 
     Rebuild *scheduling* lives in the trajectory drivers, which rebuild
     unconditionally every ``rebuild_every`` steps in a nested scan — a
-    data-dependent ``lax.cond`` rebuild costs ~0.8 ms/step of conditional
-    overhead on TPU even when the cheap branch is taken (measured), more
-    than the binning it saves.  With ``guard`` (default), a step whose
+    data-dependent ``lax.cond`` rebuild keeps a conditional in every step
+    (whether a displacement trigger pays on the card awaits an A/B).  With ``guard`` (default), a step whose
     displacement invalidates the reused state poisons the energy to NaN —
     an over-optimistic rebuild interval is visible, never silently wrong.
     """
@@ -115,8 +114,8 @@ def nve_step_nb(state: MDStateNB, e_fn, masses, dt: float) -> MDStateNB:
     return MDStateNB(x_new, v_new, f_new, e, nb)
 
 
-# Packed-carry representation knob (round-4 hetero lead, BASELINE.md):
-# "packed"   — [N, 9] x|v|f, the round-2 measured default
+# Packed-carry representation knob:
+# "packed"   — [N, 9] x|v|f
 # "barrier"  — [N, 9] with lax.optimization_barrier on the carry at each
 #              inner-step boundary (pins the layout choice against the
 #              energy graph's preferences)
@@ -129,24 +128,19 @@ def nve_step_nb(state: MDStateNB, e_fn, masses, dt: float) -> MDStateNB:
 # "fbarrier" — barrier on the forces coming OUT of the energy fn
 # "xfbarrier"— both
 # Module-level so measurement tools can A/B without threading an arg
-# through every driver; production default is set by the measured winner.
-#
-# Measured (tools/carry_ab.py round 2, TPU v5e, 30k atoms, 2 reps
-# alternated): "xbarrier" reads hetero s8 3.101 vs packed 3.396 ms
-# (+5.6% over water, from +16%) at zero cost on pure water (2.937 vs
-# 2.938) — the hetero energy graph's gather-driven layout preference
-# was propagating back into the packed carry buffer and relayouting at
-# every loop boundary; an optimization_barrier on the positions handed
-# to the energy fn severs exactly that edge.  "fbarrier" is a no-op
-# (3.396); the force-out edge is not the leak.
+# through every driver.  Default "xbarrier": the hetero energy graph's
+# gather-driven layout preference can propagate back into the packed
+# carry buffer and relayout it at every loop boundary; a barrier on the
+# positions handed to the energy fn severs exactly that edge.  Whether it
+# pays on the card awaits an A/B.
 PACKED_CARRY_MODE = "xbarrier"
 _MODES = ("packed", "barrier", "flat", "xbarrier", "fbarrier", "xfbarrier")
 
 
 def x_into_energy(x, mode: str | None = None):
     """Positions at the carry -> energy-graph boundary: under the
-    "xbarrier"/"xfbarrier" carry modes (the measured production default,
-    see :data:`PACKED_CARRY_MODE`), wrap them in
+    "xbarrier"/"xfbarrier" carry modes (the production default, see
+    :data:`PACKED_CARRY_MODE`), wrap them in
     ``lax.optimization_barrier`` so the energy graph's layout preference
     cannot propagate into the scan carry buffer.  Identity otherwise.
     Every packed-carry trajectory driver routes the positions it hands
@@ -165,13 +159,10 @@ def make_packed_nve_chunk(e_fn, init_nb, masses, dt: float,
     ``rebuild_every`` velocity-Verlet steps on a single ``[N, 9]`` carry
     array holding x|v|f side by side.
 
-    Why packed: carrying positions/velocities/forces as three separate
-    ``[N, 3]`` scan carries measures ~0.3 ms/step of overhead at 30k on TPU
-    (tools/step_pieces.py) — XLA assigns each narrow carry its own padded
-    layout and relayouts at the loop boundary every iteration.  One packed
-    array makes that a single buffer: the packed full Verlet step measures
-    *faster* than even a forces-only gradient loop with a lone [N, 3]
-    carry.  The per-step scan output is total energy (potential +
+    Why packed: with positions/velocities/forces as three separate
+    ``[N, 3]`` scan carries XLA may give each narrow carry its own padded
+    layout and relayout it at the loop boundary every iteration; one
+    packed array makes that a single buffer.  The per-step scan output is total energy (potential +
     kinetic).  The neighbor state is closed over by the inner scan, not
     carried (it is constant between rebuilds).  ``carry`` selects the
     carry representation (default :data:`PACKED_CARRY_MODE`)."""
@@ -552,9 +543,8 @@ def maxwell_velocities(masses, temp: float, key,
 def nve_trajectory(state: MDState, energy_fn, masses, dt: float, n_steps: int):
     """Run n_steps of NVE; returns (final_state, per-step total energies).
 
-    Scans on a packed ``[N, 9]`` x|v|f carry plus the potential — separate
-    narrow ``[N, 3]`` carries cost ~0.3 ms/step of per-carry layout
-    overhead at 30k on TPU (tools/step_pieces.py)."""
+    Scans on a packed ``[N, 9]`` x|v|f carry plus the potential (see
+    :func:`make_packed_nve_chunk` for why)."""
 
     def body(carry, _):
         p, pot = carry
@@ -621,9 +611,8 @@ def langevin_trajectory(state: MDState, energy_fn, masses, dt: float,
                         n_steps: int):
     """n_steps of BAOAB Langevin; returns (final_state, kinetic energies).
 
-    Runs the scan on a packed ``[N, 9]`` x|v|f carry — separate narrow
-    ``[N, 3]`` carries cost ~0.3 ms/step of per-carry layout overhead at
-    30k on TPU (tools/step_pieces.py; same fix as nve_trajectory_nb)."""
+    Runs the scan on a packed ``[N, 9]`` x|v|f carry (see
+    :func:`make_packed_nve_chunk` for why)."""
 
     def body(carry, _):
         p, k = carry

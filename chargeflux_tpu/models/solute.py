@@ -1,6 +1,6 @@
 """Solvated-solute model family: a bonded chain "mini-protein" in water.
 
-BASELINE config 4 names a *solvated* box; the reference API is
+The benchmark's hetero30k cell is a *solvated* box; the reference API is
 topology-agnostic (CoulForce.h:137-149 — arbitrary particles, exclusions
 and flux terms), so a real workload mixes one irregular solute with
 thousands of identical waters.  This model builds exactly that shape:

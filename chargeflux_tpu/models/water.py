@@ -1,6 +1,6 @@
 """Flexible 3-site water systems with charge flux.
 
-System builders for the workload ladder in BASELINE.md (125-water cluster,
+System builders for the benchmark ladder in bench.py (125-water cluster,
 216-water Ewald box, 4k/30k/100k-atom boxes).  These are the "model family"
 of this engine: TIP3P-like base charges and LJ, flexible geometry, and
 charge-flux terms expressed either as per-bond/per-angle fluxes
@@ -147,7 +147,7 @@ def water_cluster(n_side: int = 5, spacing: float = 0.31, flux: str = "bond_angl
     """Non-periodic n_side^3-water cluster on a jittered lattice.
 
     Returns (force, positions [3*n^3, 3], masses [3*n^3]).
-    n_side=5 gives the 125-water cluster of BASELINE.md.
+    n_side=5 gives the 125-water cluster.
     """
     rng = np.random.default_rng(seed)
     force = CoulForce()
@@ -235,7 +235,7 @@ def water_box(n_side: int = 6, flux: str = "bond_angle", cutoff: float = 0.9,
     """Periodic n_side^3-water box at roughly liquid density.
 
     Returns (force, positions, masses, box [3]).  n_side=6 gives the
-    216-water Ewald box of BASELINE.md; the default spacing reproduces
+    216-water Ewald box of the benchmark; the default spacing reproduces
     ~997 kg/m^3.
     """
     rng = np.random.default_rng(seed)

@@ -2,15 +2,15 @@
 
 The reference rebuilds its neighbor list on every evaluation
 (ReferenceCoulKernels.cpp:559, SURVEY §5 quirk 7).  Here the binning
-(cells.build_cell_list_full, ~0.9 ms at 30k) is reused across steps: the
+(cells.build_cell_list_full) is reused across steps: the
 cell edge already exceeds the cutoff (edge = box/floor(box/cutoff)), so the
 surplus is a free *skin* — the traversal's r < cutoff mask keeps results
 exact while every atom has moved less than skin/2 since the last rebuild
 (the standard Verlet-list argument).  Trajectory drivers amortize by
 rebuilding *unconditionally* every ``suggest_rebuild_interval`` steps in a
 nested scan, with ``neighbor_state_fresh`` as a NaN-poison backstop — a
-data-dependent ``lax.cond`` rebuild costs ~0.8 ms/step on TPU even on the
-cheap branch (CLAUDE.md, measured), more than the binning it skips; the
+data-dependent ``lax.cond`` rebuild keeps a conditional in every step
+(whether a displacement trigger pays on the card awaits an A/B); the
 ``refresh_neighbor_state`` cond variant is for host-driven stepping only.
 
 Wrap offsets are frozen at rebuild time (``wrap = box*floor(x_ref/box)``):
@@ -80,9 +80,8 @@ def refresh_neighbor_state(state: NeighborState, positions: jax.Array,
     rebuild cost is paid only on rebuild steps).  Non-differentiable by
     construction; callers should treat the result as constant data.
 
-    NOT the production pattern: a data-dependent lax.cond costs ~0.8
-    ms/step on TPU even when the cheap branch is taken (CLAUDE.md,
-    measured), more than the binning it skips — trajectory drivers
+    NOT the production pattern (a data-dependent lax.cond in every
+    step) — trajectory drivers
     (integrate.nve_trajectory_nb etc.) instead rebuild unconditionally
     every K steps in a nested scan with the freshness guard as a NaN
     backstop.  Kept for interactive/host-driven stepping and tests."""

@@ -187,8 +187,7 @@ def nose_hoover_trajectory(state: MDState, energy_fn, masses, dt: float,
                            chain: NHChain | None = None):
     """n_steps of deterministic NHC NVT; returns (final_state, final_chain,
     per-step kinetic energies).  Same packed [N, 9] x|v|f scan carry as the
-    other drivers (BASELINE.md: three narrow carries cost ~0.3 ms/step at
-    30k).  ``n_dof`` defaults to 3N - 3 (the chain scales velocities
+    other drivers (integrate.make_packed_nve_chunk).  ``n_dof`` defaults to 3N - 3 (the chain scales velocities
     uniformly, so zero total momentum is preserved and those 3 DoF carry
     no kinetic energy); pass 3N if momentum is not zeroed.  Resumable:
     pass the returned chain back in."""

@@ -4,15 +4,15 @@ The reference plugin computes only charge-flux electrostatics and leaves
 ensemble control to OpenMM's host framework (SURVEY §1 L0): its users run
 NPT by attaching OpenMM's ``MonteCarloBarostat`` to the Context.  A
 standalone engine must supply the equivalent, so this module implements the
-same algorithm TPU-style — isotropic volume moves that scale molecule
+same algorithm inside the jit program — isotropic volume moves that scale molecule
 *centroids* (intramolecular geometry untouched), Metropolis acceptance with
 the NPT weight ``W = dE + P dV - N_mol kT ln(V'/V)``, and a Langevin
 (BAOAB) driver that interleaves attempts with MD chunks.  The whole
 trajectory is one lax.scan program; the accept/reject is a ``where``-select
-(a data-dependent ``lax.cond`` costs ~0.8 ms/step of conditional overhead
-on TPU even on the cheap branch — measured, see integrate.make_nb_energy_fn).
+(no data-dependent ``lax.cond`` in the step, see
+integrate.make_nb_energy_fn).
 
-The TPU-native part: the box is a *traced leaf* of the system pytree
+The key part: the box is a *traced leaf* of the system pytree
 (``ChargeFluxSystem.with_box``), so a volume move re-uses the compiled
 energy function — trace-time statics (alpha, kmax, PME grid, cell grid and
 capacity) stay fixed.  They were derived for the creation-time box, so the
@@ -29,7 +29,7 @@ inside the scan carry with no host round-trips and converges to the same
 ~50% acceptance.
 
 Scope: single-device (or vmap-replica) trajectories by default.  NPT over
-a halo-sharded system (round 4): pass ``energy_fn=make_halo_energy_fn(
+a halo-sharded system: pass ``energy_fn=make_halo_energy_fn(
 system, mesh)`` — slab ownership is fractional so volume moves never
 re-partition atoms, and the halo route carries the same traced-box
 grid-validity NaN guard as the single-chip cell path; the driver then
@@ -117,7 +117,7 @@ def instantaneous_pressure(positions, velocities, system, masses,
                            bonded=None) -> jax.Array:
     """Instantaneous internal pressure in bar, from the full virial.
 
-    TPU-native formulation: instead of accumulating per-pair ``r·f`` terms
+    Formulation: instead of accumulating per-pair ``r·f`` terms
     through every kernel (the classic approach, which would need plumbing
     through the direct walk, PME, exclusions and flux chain rule), take
     ``dE/ds`` of the *uniformly scaled* configuration — positions and the
@@ -171,8 +171,7 @@ def _box_grad_potential(xs, sysb, system, bonded):
         e = (self_energy(q, spec.alpha)
              + _exclusion_correction(xs, q, sysb, subtract_direct=True)
              + cell_roll_direct_energy(xs, q, sysb)
-             + reciprocal_energy(xs, q, sysb.box, spec.alpha,
-                                 spec.kmax, method="xla"))
+             + reciprocal_energy(xs, q, sysb.box, spec.alpha, spec.kmax))
         if spec.tail_coeff is not None:
             from .energy import dispersion_energy
             e = e + dispersion_energy(sysb.box, spec, xs.dtype)
@@ -191,8 +190,7 @@ def pressure_tensor(positions, velocities, system, masses,
     :func:`instantaneous_pressure` up to the same Ewald-truncation
     caveat).
 
-    Strain-derivative formulation (TPU-native, no per-kernel virial
-    plumbing): deform positions and lattice rows by ``F = I + tril(eps)``
+    Strain-derivative formulation (no per-kernel virial plumbing): deform positions and lattice rows by ``F = I + tril(eps)``
     (lower-triangular strain keeps a reduced lattice lower-triangular, so
     every traced triclinic code path stays valid) and autodiff at
     ``eps = 0``:
@@ -309,8 +307,7 @@ def _npt_langevin_driver(positions, velocities, system, masses,
 
         # packed [N, 9] x|v|f carry, same rationale as
         # integrate.make_packed_nve_chunk (three separate [N, 3] carries
-        # measure ~0.3 ms/step of loop-boundary relayout at 30k); the
-        # positions handed to the force closure go through x_into_energy.
+        # may each be relayouted at the loop boundary); the positions handed to the force closure go through x_into_energy.
         if constraints is None:
             def body(p, kk):
                 x, v, f = p[:, 0:3], p[:, 3:6], p[:, 6:9]

@@ -8,8 +8,8 @@ Two approximation families:
 * :func:`erf_over_r_eval` — erf(alpha*r)/r as a single Chebyshev-fit
   polynomial **in r^2** over [0, cutoff^2].  The direct-space Coulomb
   kernel is then  erfc(alpha*r)/r = 1/r - P(r^2): no exp, no divide, no
-  odd powers of r — on the TPU VPU, where exp and divide are multi-pass
-  ops, this is the cheapest erfc/r formulation (CLAUDE.md roadmap item).
+  odd powers of r — where exp and divide are multi-instruction ops, this
+  is the cheapest erfc/r formulation.
   The derivative dP/d(r^2) comes from the *same* coefficients (dual-number
   Horner), so forces remain the exact gradient of the computed energy.
   Fit accuracy at degree 12 (measured): |P - f| <= 8e-8, |P' - f'| <=

@@ -79,9 +79,11 @@ def frac_coords(x: jax.Array, box: jax.Array) -> jax.Array:
     for an orthorhombic [3] box this is x / box.
 
     The triclinic transform is expanded ELEMENTWISE (not an [N,3]@[3,3]
-    dot): the default TPU f32 matmul demotes to bf16, which would put
-    ~2^-9-relative error straight into coordinates on an accuracy-relevant
-    path (repo precision rule, CLAUDE.md)."""
+    dot): an f32 matmul at the default precision may run in a reduced
+    mode (TF32 on the GPU's tensor cores, ~2^-11 relative), which would
+    put that error straight into coordinates on an accuracy-relevant path
+    (repo precision rule: accuracy-relevant f32 dots pin their
+    precision)."""
     if box.ndim == 2:
         inv = box_inverse(box)
         f0 = x[..., 0] * inv[0, 0] + x[..., 1] * inv[1, 0] \
@@ -121,7 +123,8 @@ def reciprocal_metric(box: jax.Array, dtype) -> jax.Array:
     Diagonal (2 pi / L_i)^2 for an orthorhombic box."""
     if box.ndim == 2:
         b = box.astype(dtype)
-        g = jnp.linalg.inv(b @ b.T)
+        g = jnp.linalg.inv(jnp.matmul(b, b.T,
+                                      precision=jax.lax.Precision.HIGHEST))
         return (2.0 * jnp.pi) ** 2 * g
     r = (2.0 * jnp.pi) / box.astype(dtype)
     return jnp.diag(r * r)

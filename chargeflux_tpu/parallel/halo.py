@@ -1,6 +1,6 @@
 """Spatial slab decomposition with ppermute halo exchange.
 
-The promised first-class TPU scale-out path (SURVEY §2/§5): the cell grid is
+The first-class scale-out path (SURVEY §2/§5): the cell grid is
 sliced into contiguous x-plane slabs, one per device along the mesh axis.
 Each device
 
@@ -9,7 +9,7 @@ Each device
 * gathers its local cell blocks (row-wise, inverse-permutation backward —
   same trick as cells.blockify),
 * receives ONE boundary plane of blocks from its +x ring neighbor via
-  ``jax.lax.ppermute`` over ICI (the half-shell's dx is in {0, 1}, so
+  ``jax.lax.ppermute`` (the half-shell's dx is in {0, 1}, so
   only the high halo is consumed; -x cross-boundary pairs are the lower
   device's dx=+1 shift),
 * runs the concat-layout pair-tile walk (cells.py's production layout) on
@@ -25,8 +25,8 @@ Out-designs the reference's vestigial multi-context exclusion-tile split
 (CudaCoulKernels.cpp:477-481), which never parallelized the pair sum at all.
 
 Decomposition (``halo_decomp``): pure x-slabs (one ppermute/eval) whenever
-gx divides ndev's share; otherwise — or past gx devices, the pod-slice
-case — a 2-D x-by-y brick decomposition with a TWO-STAGE exchange (extend
+gx divides ndev's share; otherwise — or past gx devices — a 2-D x-by-y
+brick decomposition with a TWO-STAGE exchange (extend
 y both ways, then send the y-extended x boundary plane: 3 ppermutes,
 corners compose for free), scaling to gx*gy devices.
 ``parallel.shard.make_sharded_energy_fn`` falls back to work sharding when
@@ -50,7 +50,7 @@ from jax.sharding import Mesh, PartitionSpec as P
 from ..cells import (HALF_SHELL, _boundary_crossing, gather_rows,
                      rank_into_slots, wrap_offsets)
 from ..charges import effective_charges
-from ..energy import dispersion_energy
+from ..energy import dispersion_energy, resolve_recip_method
 from ..ewald import reciprocal_energy_from_sf, self_energy, structure_factors
 from ..ops.erfc import erfc_fast
 from ..pairs import frac_coords
@@ -61,8 +61,8 @@ from .shard import _ceil_to, _excl_chunk_energy
 def halo_decomp(system, ndev: int):
     """Pick the (Dx, Dy) slab factorization for ``ndev`` devices, or None
     if no halo decomposition fits.  Prefers pure x-slabs (Dy == 1: one
-    ppermute per eval); when gx doesn't divide — or ndev exceeds gx, the
-    pod-slice case — falls to the 2-D x-by-y decomposition (3 ppermutes)
+    ppermute per eval); when gx doesn't divide — or ndev exceeds gx —
+    falls to the 2-D x-by-y decomposition (3 ppermutes)
     with the largest Dx whose complement divides gy."""
     spec = system.spec
     if not (spec.pbc and spec.direct_method == "cell"
@@ -87,10 +87,10 @@ def _local_bin(positions, system, dev_x, dev_y, gxl, gyl):
     inv_slot [N] (sentinel = n_local_slots for atoms owned elsewhere).
 
     Uses the shared two-stage hierarchical ranking (cells.rank_into_slots)
-    with the slab ownership mask — the round-2 flat [N, n_local] one-hot
-    cost O(N * n_local) HBM and walled the halo path at ~1M atoms
-    (VERDICT r2 item 6); the two-stage form is O(N * gxl*gyl +
-    local_slots * gz), the same scaling fix the single-chip binner got."""
+    with the slab ownership mask — a flat [N, n_local] one-hot would cost
+    O(N * n_local) device memory and wall the halo path at ~1M atoms; the
+    two-stage form is O(N * gxl*gyl + local_slots * gz), the same scaling
+    fix the single-device binner has."""
     spec = system.spec
     cap = spec.cell_capacity
     n = positions.shape[0]
@@ -117,9 +117,9 @@ def make_halo_energy_fn(system, mesh: Mesh, axis_name: str = "space",
     ``decomp=(Dx, Dy)`` picks the slab factorization; default
     :func:`halo_decomp` — pure x-slabs whenever gx divides (one ppermute
     per eval), else the 2-D x-by-y decomposition (two-stage exchange,
-    3 ppermutes) that scales past gx devices to gx*gy (pod slices).
+    3 ppermutes) that scales past gx devices to gx*gy.
 
-    NPT support (round 4): ``box`` may be a *traced* lattice (defaults to
+    NPT support: ``box`` may be a *traced* lattice (defaults to
     the creation-time ``system.box``) — slab ownership is fractional, so a
     volume move never re-partitions atoms across devices; validity of the
     static cell grid under the moved box is guarded in-jit exactly like
@@ -182,25 +182,18 @@ def _halo_local_energy_builder(system, axis_name: str, ndev: int,
     e_chunk = _ceil_to(max(system.n_exclusions, 1), ndev) // ndev
     alpha = spec.alpha
     cutoff2 = spec.cutoff * spec.cutoff
-    # Reciprocal route: distributed SPME (per-device spread of its slab's
-    # cells onto the mesh + ONE psum of the ~2-4 MB charge grid + replicated
-    # FFT/influence) when the spec asks for PME or resolves to it on the TPU
-    # f32 production path — same selection as the single-chip engine
-    # (energy.py).  Otherwise the classical chunked structure-factor sum.
-    # (the auto branch is completed per-trace on positions.dtype inside
-    # local_energy, matching energy.py's selection exactly — gating on a
-    # parameter dtype here could disagree with a mixed-dtype call)
-    use_pme_always = spec.pme_grid is not None and spec.recip_method == "pme"
-    use_pme_auto = (spec.pme_grid is not None
-                    and spec.recip_method == "auto"
-                    and jax.default_backend() == "tpu")
 
     def local_energy(positions, box_in):
         dev = jax.lax.axis_index(axis_name)
         dev_x = dev // ddy
         dev_y = dev % ddy
         dtype = positions.dtype
-        use_pme = use_pme_always or (use_pme_auto and dtype == jnp.float32)
+        # Reciprocal route: the single-device engine's resolver, on the
+        # traced positions' dtype.  PME is the distributed SPME (each
+        # device spreads its slab's cells onto the mesh, ONE psum of the
+        # charge grid, replicated FFT/influence); "xla" is the classical
+        # chunked structure-factor sum.
+        use_pme = resolve_recip_method(spec, dtype) == "pme"
         # a (possibly traced) barostat-moved box: thread it through
         # everything box-dependent via the pytree-leaf swap (system.with_box)
         sysb = system.with_box(box_in)
@@ -277,11 +270,11 @@ def _halo_local_energy_builder(system, axis_name: str, ndev: int,
         # Concat walk layout, as in the single-chip route (cells.py): the
         # 14 half-shell j slabs — x via ext slicing (dx in {0, 1}), y/z
         # via rolls with static boundary image offsets — are concatenated
-        # along the slot axis into ONE [cap, 14*cap] pair tile so the
-        # 128-lane padding is paid once.  The whole tile is wrapped in
+        # along the slot axis into ONE [cap, 14*cap] pair tile so any
+        # minor-axis tile padding is paid once.  The whole tile is wrapped in
         # jax.checkpoint: under plain autodiff the backward pass would
         # otherwise keep the [.., cap, 14*cap] r2/inv_r/sig6 intermediates
-        # live in HBM (the single-chip route fuses them away with a hand
+        # live in device memory (the single-device route fuses them away with a hand
         # VJP; here recomputation buys the same memory profile).
         yz_ax = (1, 2)
 

@@ -1,25 +1,22 @@
-"""Multi-slice scaling over DCN (BASELINE config 5 / SURVEY §2 last bullet).
+"""Two-level composition: replicas over one mesh axis, space over the other
+(SURVEY §2 last bullet).
 
-A multi-pod TPU job sees two interconnects: ICI within a slice (fast, does
-the per-step work) and DCN between slices (slow, must stay off the step
-critical path).  The MD decomposition that fits this hierarchy:
+On a plain 2-axis mesh ("slice", "space") — for example two pairs of cards
+— the MD decomposition splits the two kinds of parallelism:
 
-* **within a slice (ICI)**: one replica's spatial work — the slab/halo
-  direct space, psum of structure factors / partial PME grids, force
-  assembly (parallel.halo / parallel.shard);
-* **across slices (DCN)**: replica ensembles.  Replicas are independent
-  trajectories, so the per-step DCN traffic is ZERO; only ensemble
-  observables (mean energy, order parameters, replica-exchange swaps)
-  cross DCN, and only when sampled.
+* **along "space"**: one replica's spatial work — the slab/halo direct
+  space, psum of structure factors / partial PME grids, force assembly
+  (parallel.halo / parallel.shard);
+* **along "slice"**: replica ensembles.  Replicas are independent
+  trajectories, so the per-step traffic along this axis is ZERO; only
+  ensemble observables (mean energy, order parameters, replica-exchange
+  swaps) cross it, and only when sampled.
 
-``make_multislice_energy_fn`` builds that composition on a
-("slice", "space") mesh: the batch axis is sharded over slices, each
-replica's work is sharded over its slice's devices, and
-``ensemble_mean`` shows the (off-path) DCN reduction.  On real hardware,
-construct the mesh so the "slice" axis maps to DCN granules
-(jax.experimental.mesh_utils.create_hybrid_device_mesh(..., dcn_mesh_shape)
-does exactly this); the program is identical — XLA routes collectives over
-the right interconnect from the mesh topology.
+``make_multislice_energy_fn`` builds that composition: the batch axis is
+sharded over slices, each replica's work is sharded over its slice's
+devices, and ``ensemble_mean`` shows the (off-path) cross-slice reduction.
+When the two axes map to links of different speed (cards of one host vs
+hosts), put "slice" on the slower one; the program is identical.
 """
 
 from __future__ import annotations
@@ -35,9 +32,9 @@ from .shard import _local_energy_builder
 def make_multislice_energy_fn(system, mesh: Mesh, slice_axis: str = "slice",
                               space_axis: str = "space"):
     """energy_batch(positions [R, N, 3]) -> [R]: replicas sharded over
-    ``slice_axis`` (DCN, zero per-step collectives), each replica's work
-    sharded over ``space_axis`` (ICI: halo exchange when the cell grid
-    divides the axis, work sharding otherwise).  Differentiable."""
+    ``slice_axis`` (zero per-step collectives), each replica's work
+    sharded over ``space_axis`` (halo exchange when the cell grid divides
+    the axis, work sharding otherwise).  Differentiable."""
     ndev = mesh.shape[space_axis]
     if halo_compatible(system, ndev):
         halo_inner = _halo_local_energy_builder(system, space_axis, ndev)
@@ -60,7 +57,7 @@ def make_multislice_energy_fn(system, mesh: Mesh, slice_axis: str = "slice",
 def ensemble_mean(values: jax.Array, mesh: Mesh,
                   slice_axis: str = "slice") -> jax.Array:
     """Mean of a replica-sharded [R] observable — the only collective that
-    crosses DCN, off the step critical path."""
+    crosses the slice axis, off the step critical path."""
     def local(v):
         s = jax.lax.psum(jnp.sum(v), slice_axis)
         return s / values.shape[0]

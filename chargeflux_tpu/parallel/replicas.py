@@ -8,8 +8,6 @@ device); this is the SURVEY §2 "vmap replica ensembles" component.
 
 from __future__ import annotations
 
-import dataclasses
-
 import jax
 import jax.numpy as jnp
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
@@ -18,28 +16,9 @@ from ..energy import _energy
 from ..integrate import MDState, nve_step
 
 
-def vmap_friendly_system(system):
-    """Pin recip_method="xla" for vmapped ensembles on the TPU dense path.
-
-    A vmapped pallas_call lowers to a serial per-replica grid loop, while
-    the XLA classical-Ewald structure factors batch into one MXU matmul
-    over all replicas — measured 1.9 vs 2.6 ms/step for 64 x 216-water
-    (the single-system auto pick is pallas at that size and stands).
-    Only "auto" is rewritten: an explicitly requested method is the
-    user's to keep (e.g. A/B-ing the Pallas kernel on the replica
-    path)."""
-    spec = system.spec
-    if (spec.pbc and spec.direct_method == "dense"
-            and spec.recip_method == "auto"):
-        return dataclasses.replace(
-            system, spec=dataclasses.replace(spec, recip_method="xla"))
-    return system
-
-
 @jax.jit
 def replica_energy_and_forces(positions_batch, system):
     """[R, N, 3] -> ([R], [R, N, 3]) batched energies/forces."""
-    system = vmap_friendly_system(system)
 
     def ef(x):
         e, g = jax.value_and_grad(_energy)(x, system)
@@ -190,10 +169,9 @@ def replica_nve_trajectory(states: MDState, energy_fn, masses, dt: float,
     (final MDState batch, [n_steps, R] per-step total energies).
 
     The scan carries ONE flat ``[R, N*9]`` array (x|v|f packed per replica,
-    then flattened): a ``[R, N, 3]``-shaped carry pays the same narrow-
-    minor-dim layout tax at the loop boundary as the single-system
-    integrators' separate [N, 3] carries — measured 2.10 vs 1.97 ms/step
-    for the 64 x 216-water ensemble (tools/replica_carry.py)."""
+    then flattened): a ``[R, N, 3]``-shaped carry may pay the same
+    narrow-minor-dim relayout at the loop boundary as the single-system
+    integrators' separate [N, 3] carries."""
     from ..integrate import kinetic_energy
 
     r, n, _ = states.positions.shape

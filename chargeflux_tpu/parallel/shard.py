@@ -2,10 +2,10 @@
 
 The reference is single-device: its only multi-GPU artifact is a vestigial
 exclusion-tile range split (CudaCoulKernels.cpp:477-481, SURVEY §2).  This
-module is the first-class TPU replacement: the energy sum is *additive over
+module is the first-class replacement: the energy sum is *additive over
 work items* (atom rows / cell rows / k-space structure-factor contributions /
 exclusion pairs), so each device computes a chunk against replicated
-positions and the total is assembled with ``psum`` over ICI.
+positions and the total is assembled with ``psum``.
 
 Design choices (scaling-book style):
 
@@ -27,9 +27,8 @@ walk, no gathers; 1-D x-slabs or 2-D x-by-y bricks, ``halo_decomp``) is
 tried first and is the production scale-out path.  This module's cell-row
 fallback uses gather-based ``cell_rows_direct_energy`` whose backward
 lowers to scatter-adds — the pattern the single-chip roll walk exists to
-avoid — so it is a correctness/coverage path only, and an expensive one:
-**measured 13.4x per work item** vs the roll walk at 30k on TPU
-(BASELINE.md round 4, tools/fallback_tpu.py).  With the 2-D decomposition
+avoid — so it is a correctness/coverage path only, and an expensive one.
+With the 2-D decomposition
 and ``create_system(halo_devices=D)`` grid sizing, essentially every
 production (system, mesh) pair can stay on the halo path; landing here
 means both grid axes are indivisible — rebuild the system with

@@ -1,8 +1,8 @@
-"""Smooth particle-mesh Ewald (SPME) reciprocal space — TPU-first.
+"""Smooth particle-mesh Ewald (SPME) reciprocal space.
 
 Replaces the classical O(N*K) k-space sum (the reference's brute-force
 reciprocal loops, ReferenceCoulKernels.cpp:519-556 / PBCForce.cu:841-950,
-and ewald.py's MXU-factorized equivalent) with the O(N + G^3 log G) SPME
+and ewald.py's factorized equivalent) with the O(N + G^3 log G) SPME
 algorithm (Essmann et al., J. Chem. Phys. 103, 8577 (1995)):
 
     E_rec = (2 pi k_e / V) sum_{m != 0} exp(-k^2/4a^2)/k^2 * |b1 b2 b3|^2 |Q^(m)|^2
@@ -10,30 +10,28 @@ algorithm (Essmann et al., J. Chem. Phys. 103, 8577 (1995)):
 where Q is the charge grid spread with cardinal B-splines of order p and
 Q^ = FFT(Q).
 
-TPU-native design decisions (all measured on v5e, tools/microbench.py):
+Design:
 
-* **No scatter spread.**  The canonical p^3-point scatter-add spread costs
-  ~7 ns/element through XLA on TPU (2M points at 30k atoms = 14.5 ms —
-  dead).  Instead the spread is *dense separable*: per-axis weight matrices
-  W[i, g] = M_p((u_i - g) mod G) (mostly zeros, but dense [N, G] arrays),
-  and  Q[x,y,z] = sum_i q_i Wx[i,x] Wy[i,y] Wz[i,z]  contracted column-block
-  by column-block on the MXU (0.21 ms for the 30k shape).  MXU FLOPs are
-  ~100x cheaper than scattered elements, so burning G/p extra FLOPs to stay
-  dense is the right trade.  Bonus: the spline order p is *free* (it only
-  changes the weight table values, not the contraction), so accuracy is
-  cheap — we default to p=8.
+* **Spreads without scatters.**  Two spreads share the B-spline weights.
+  The dense-separable spread (:func:`pme_reciprocal_energy`) builds per-axis
+  weight matrices W[i, g] = M_p((u_i - g) mod G) (mostly zeros, but dense
+  [N, G] arrays) and contracts Q[x,y,z] = sum_i q_i Wx[i,x] Wy[i,y] Wz[i,z]
+  column block by column block as matrix products.  The cell-blocked
+  spread (:func:`pme_cell_reciprocal_energy`, the production route) reuses
+  the direct walk's cell blocks: each cell's atoms touch only a static
+  patch of the mesh, contracted per cell and folded onto the mesh by
+  static placement matrices.  Either way the spread and its backward are
+  matrix products, and the spline order p never enters a contraction
+  shape, so accuracy is cheap — we default to p=8.
 * The periodic wrap is (u - g) mod G inside the spline argument — no index
   arithmetic, and autodiff through the piecewise-polynomial recursion gives
   exact forces (forces are the exact gradient of the computed energy).
-* FFTs are effectively free on TPU (64^3 round trip = 0.07 ms) — the XLA
-  FFT op does the heavy lifting.
-* f32 matmuls pin DotAlgorithmPreset.BF16_BF16_F32_X3 (the default TPU f32
-  matmul downcasts to bf16: 3.8e-3 relative force error, 38x budget).
+* The FFT is XLA's FFT op.
+* f32 dots pin one algorithm for every backend (ewald.F32_DOT_PRECISION).
 
-Complexity: O(N*G*(3 + G^2/CB... )) arithmetic but on the MXU; memory
-O(N*G).  The dense-separable contraction is O(N G^3) MAC — at 100k atoms /
-96^3 grid that is 87 GMAC (sub-ms on a v5e chip), and it removes every
-gather/scatter from the reciprocal path.
+Complexity: the dense-separable contraction is O(N G^3) MAC with O(N G)
+memory; the cell-blocked spread is O(N W^3) with W = ceil(G / cells) +
+p + 2 per axis.
 """
 
 from __future__ import annotations
@@ -47,6 +45,7 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
+from .ewald import dot_precision
 from .pairs import box_inverse, box_volume, frac_coords, reciprocal_metric
 from .units import ONE_4PI_EPS0
 
@@ -57,7 +56,7 @@ from .units import ONE_4PI_EPS0
 # influence) drops ~3x.
 DEFAULT_ORDER = 8
 
-# column-block width for the spread contraction (x columns per MXU pass)
+# column-block width for the dense spread contraction (x columns per pass)
 _COL_BLOCK = 8
 
 
@@ -74,8 +73,7 @@ def good_fft_size(n: int) -> int:
 
 
 # Measured prefactors of the PME force-error law  relF ~= C_p (alpha h)^p
-# (f64 force RMSE vs converged classical Ewald on a water box,
-# tools/calibrate_pme.py).
+# (f64 force RMSE vs converged classical Ewald on a water box).
 _ERR_PREFACTOR = {4: 0.26, 6: 0.06, 8: 0.027}
 
 
@@ -84,7 +82,7 @@ def pme_grid_size(box, alpha: float, tol: float,
     """Per-axis mesh size for a target relative force error ``tol``.
 
     Calibrated against measured f64 force RMSE vs the converged classical
-    Ewald sum (tools/calibrate_pme.py): relF ~= C_p (alpha h)^p with h the
+    Ewald sum: relF ~= C_p (alpha h)^p with h the
     mesh spacing, solved for h with a 2x safety margin and rounded up to an
     FFT-friendly size.
     """
@@ -219,13 +217,10 @@ def influence_function(grid: Tuple[int, int, int], box: jax.Array,
 
 
 def _spread_grid(wx, wy, wz, q, dtype):
-    """Q[x, y, z] = sum_i q_i Wx[i,x] Wy[i,y] Wz[i,z] via column-blocked MXU
+    """Q[x, y, z] = sum_i q_i Wx[i,x] Wy[i,y] Wz[i,z] via column-blocked
     matmuls (no scatter).  wx/wy/wz: [N, G*]."""
-    if dtype == jnp.float32:
-        prec = jax.lax.DotAlgorithmPreset.BF16_BF16_F32_X3
-    else:
-        prec = None
-    dot = partial(jnp.matmul, preferred_element_type=dtype, precision=prec)
+    dot = partial(jnp.matmul, preferred_element_type=dtype,
+                  precision=dot_precision(dtype))
     gx = wx.shape[1]
     cb = _COL_BLOCK
     nb = max(g for g in range(1, cb + 1) if gx % g == 0)  # divisor <= cb
@@ -265,8 +260,8 @@ def _fold_axis(parts, origins, grid_n, patch_axis, cell_axis):
     """Overlap-add a cell-indexed patch axis onto the full grid axis:
     out[..., g] = sum_{c, w} parts[..., c, ..., w, ...] [g == (origins[c]+w)
     mod G].  All placements are static, so the fold is ONE matmul against a
-    0/1 placement tensor — it rides the MXU (~free) instead of 7 pad+roll
-    copies per axis, and the autodiff backward is the transposed matmul."""
+    0/1 placement tensor instead of 7 pad+roll copies per axis, and the
+    autodiff backward is the transposed matmul."""
     n_cells = parts.shape[cell_axis]
     w = parts.shape[patch_axis]
     dtype = parts.dtype
@@ -285,39 +280,33 @@ def _fold_axis(parts, origins, grid_n, patch_axis, cell_axis):
     return out
 
 
-@partial(jax.custom_vjp, nondiff_argnums=(3,))
-def _spread_patches(qwlx, wly, wlz, prec_name):
+@jax.custom_vjp
+def _spread_patches(qwlx, wly, wlz):
     """Per-cell patch contraction P[c,x,y,z] = sum_a qwlx[c,a,x] wly[c,a,y]
     wlz[c,a,z] with a hand-written VJP: autodiff of the two-step product +
     einsum materializes the [C, cap, Wx*Wy] intermediate several times; the
     hand backward computes the three cotangents with one batched matmul
     each plus two fused multiply-reduce passes."""
-    return _spread_patches_fwd(qwlx, wly, wlz, prec_name)[0]
+    return _spread_patches_fwd(qwlx, wly, wlz)[0]
 
 
-def _prec(prec_name, dtype):
-    if prec_name == "x3" and dtype == jnp.float32:
-        return jax.lax.DotAlgorithmPreset.BF16_BF16_F32_X3
-    return None
-
-
-def _spread_patches_fwd(qwlx, wly, wlz, prec_name):
+def _spread_patches_fwd(qwlx, wly, wlz):
     c, cap, wx = qwlx.shape
     wy = wly.shape[-1]
     dtype = qwlx.dtype
     a = (qwlx[..., :, None] * wly[..., None, :]).reshape(c, cap, wx * wy)
     p = jnp.einsum("caw,caz->cwz", a, wlz, preferred_element_type=dtype,
-                   precision=_prec(prec_name, dtype))
+                   precision=dot_precision(dtype))
     return p.reshape(c, wx, wy, wlz.shape[-1]), (qwlx, wly, wlz)
 
 
-def _spread_patches_bwd(prec_name, res, ct):
+def _spread_patches_bwd(res, ct):
     qwlx, wly, wlz = res
     c, cap, wx = qwlx.shape
     wy = wly.shape[-1]
     wz = wlz.shape[-1]
     dtype = qwlx.dtype
-    prec = _prec(prec_name, dtype)
+    prec = dot_precision(dtype)
     dp = ct.reshape(c, wx * wy, wz)
     # B[c,a,(x,y)] = sum_z dP wlz — one batched matmul
     b = jnp.einsum("cwz,caz->caw", dp, wlz, preferred_element_type=dtype,
@@ -335,45 +324,21 @@ _spread_patches.defvjp(_spread_patches_fwd, _spread_patches_bwd)
 
 
 def _cell_patch_weights(coord, n_cells, grid_n, length, extra, cell_axis,
-                        order, dtype, transposed: bool = False):
+                        order, dtype):
     """Per-cell compact B-spline patch weights — the ONE constructor
-    behind the cell-blocked spread routes (pme_cell_reciprocal_energy,
-    the Pallas variant in transposed lane layout, and the halo local
-    mesh); the three must stay bit-identical for the routes to agree to
-    reduction-order rounding.  Returns (weights, int patch origins [n_cells],
-    patch width).  ``transposed`` lands the tap axis third
-    ([ngx, ngy, W, ngz, cap]) so the Pallas kernel sees the row axis as
-    its lane dimension without an XLA transpose; default is trailing
-    ([.., cap, W])."""
+    behind the cell-blocked spread routes (pme_cell_reciprocal_energy and
+    the halo local mesh); the two must stay bit-identical for the routes
+    to agree to reduction-order rounding.  Returns (weights [.., cap, W],
+    int patch origins [n_cells], patch width)."""
     u = coord * (grid_n / length)
     org = _patch_origins(n_cells, grid_n, order, extra)
     w = _patch_width(n_cells, grid_n, order, extra)
     shape = [1, 1, 1, 1, 1]
     shape[cell_axis] = n_cells
     base = jnp.asarray(org, dtype).reshape(shape)
-    if transposed:
-        j = jnp.arange(w, dtype=dtype).reshape(1, 1, w, 1, 1)
-        t = u[:, :, None, :, :] - (base + j)
-    else:
-        j = jnp.arange(w, dtype=dtype).reshape(1, 1, 1, 1, w)
-        t = u[..., None] - (base + j)
+    j = jnp.arange(w, dtype=dtype).reshape(1, 1, 1, 1, w)
+    t = u[..., None] - (base + j)
     return bspline(t, order), org, w
-
-
-def _spread_col_batch(n_col: int, wx: int, wyp: int, rows: int) -> int:
-    """Per-program column batch for the Pallas spread kernel.
-
-    Batching amortizes per-program pipeline overheads: at the 30k shapes
-    (64 columns) cb=4 measures 0.62 vs 0.67 ms fwd+bwd for cb=1; cb=8
-    regresses to 0.71 (VMEM pressure) and cb=16 OOMs scoped VMEM — the
-    backward's a2/d_a2 transients (2*Wx*Wyp*rows f32 per unrolled column)
-    are the budget (tools/pme_colbatch.py).  Largest of {4, 2} that
-    divides the column count and keeps those transients ~<= 11 MB.
-    """
-    for cb in (4, 2):
-        if n_col % cb == 0 and cb * 2 * wx * wyp * rows * 4 <= 11 * 2 ** 20:
-            return cb
-    return 1
 
 
 def _block_spread_coords(blocks, box):
@@ -394,123 +359,12 @@ def _block_spread_coords(blocks, box):
     return ((blocks.x, box[0]), (blocks.y, box[1]), (blocks.z, box[2]))
 
 
-def _pallas_spread_ok(spec, dtype) -> bool:
-    """The Pallas column-spread kernel applies on the TPU f32 path when the
-    patch windows are strictly narrower than the mesh (always true for
-    production boxes; tiny test grids fall back to the XLA fold path) AND
-    the backward pass's per-program buffers fit Mosaic's 16 MB scoped
-    VMEM.  The estimate mirrors ops/pallas_pme._bwd_kernel at cb=1: the
-    padded mesh block plus the [Wx*Wyp, rows] a2/d_a2 transients and the
-    [rows, Gz] dense-z pair — fat-capacity configs (e.g. a 100k box
-    binned on wide z cells: rows = gz_cells*cap ~ 1760) overflow the
-    stack and must take the XLA cell path instead (measured: compile-time
-    scoped-vmem OOM at 17.7M, round 4)."""
-    if dtype != jnp.float32 or jax.default_backend() != "tpu":
-        return False
-    gx, gy, gz = spec.pme_grid
-    ngx, ngy, ngz = spec.cell_grid
-    sx, sy, _ = spec.pme_slack
-    order = spec.pme_order
-    wx = _patch_width(ngx, gx, order, sx)
-    wy = _patch_width(ngy, gy, order, sy)
-    if not (wx < gx and wy < gy and order < gz):
-        return False
-    # Calibration: Mosaic's true stack peak runs ~1.5x this estimate
-    # (the (11,11,8)/cap-220 config read 17.73M actual vs 11.62M here),
-    # so gate at 9.5M: production configs sit well under (30k 4.7M,
-    # 100k 8.1M) and the observed OOM config is excluded.
-    return _spread_bwd_vmem_est(spec) <= int(9.5 * 2 ** 20)
-
-
-def _spread_bwd_vmem_est(spec) -> int:
-    """Estimated scoped-VMEM bytes of the spread backward at cb=1
-    (mirrors ops/pallas_pme._bwd_kernel's buffers; see the calibration
-    note in :func:`_pallas_spread_ok`)."""
-    gx, gy, gz = spec.pme_grid
-    ngx, ngy, ngz = spec.cell_grid
-    sx, sy, _ = spec.pme_slack
-    order = spec.pme_order
-    wx = _patch_width(ngx, gx, order, sx)
-    wy = _patch_width(ngy, gy, order, sy)
-    wyp = -(-wy // 8) * 8
-    rows = ngz * spec.cell_capacity
-    mesh_pad = (gx + 2 * order) * (gy + 2 * order) * gz
-    blocks = 2 * (wx + wyp + order + 1) * rows          # in + out, cb=1
-    transients = (2 * wx * wyp * rows                   # a2 + d_a2
-                  + 2 * rows * gz                       # wzd + d_dense
-                  + wx * wyp * gz)                      # dp
-    return 4 * (mesh_pad + 2 * blocks + transients)
-
-
-def pme_cell_pallas_reciprocal_energy(blocks, ids, system) -> jax.Array:
-    """SPME reciprocal energy via the Pallas column-spread kernel
-    (ops/pallas_pme.py): per-cell-column patch contraction on the MXU with
-    the mesh resident in VMEM; z placed by mod-wrapped dense weights, x/y
-    ghost edges folded with two static slice-adds.  Energy-identical to
-    :func:`pme_cell_reciprocal_energy` (same weights, same influence
-    function) without its HBM patch intermediates and placement matmuls."""
-    from .ops.pallas_pme import fold_padded_axis, spread_columns
-
-    spec = system.spec
-    dtype = blocks.x.dtype
-    box = system.box
-    grid = spec.pme_grid
-    order = spec.pme_order
-    ngx, ngy, ngz = spec.cell_grid
-    cap = blocks.x.shape[-1]
-    gx, gy, gz = grid
-    n = system.n_atoms
-    qv = jnp.where(ids < n, blocks.q, 0.0)
-
-    def compact_weights_t(coord, n_cells, grid_n, length, cell_axis):
-        # transposed layout + the kernel's placement-origin convention
-        wl, org, w = _cell_patch_weights(
-            coord, n_cells, grid_n, length, spec.pme_slack[cell_axis],
-            cell_axis, order, dtype, transposed=True)
-        return wl, org + order + spec.pme_slack[cell_axis], w
-
-    (cx_, lx), (cy_, ly), (cz_, lz) = _block_spread_coords(blocks, box)
-    wlxt, opx, wx = compact_weights_t(cx_, ngx, gx, lx, 0)
-    wlyt5, opy, wy = compact_weights_t(cy_, ngy, gy, ly, 1)
-
-    # compact z taps + int origins: each atom's order nonzero z weights,
-    # expanded to the dense mod-wrapped [rows, Gz] form inside the kernel
-    # (the dense tensor in HBM + its Gz-dense B-spline eval measured ~0.2 ms
-    # of the 1.05 ms reciprocal at 30k — tools/pme_pieces.py)
-    uz = cz_ * (gz / lz)                          # [ngx, ngy, ngz, cap]
-    org_f = jax.lax.stop_gradient(jnp.floor(uz)) - (order - 1)
-    tzk = (uz - org_f)[:, :, None, :, :] - jnp.arange(
-        order, dtype=dtype).reshape(1, 1, order, 1, 1)
-    wzt5 = bspline(tzk, order)                    # [ngx, ngy, order, ngz, cap]
-    zorg = jnp.mod(org_f, gz).astype(jnp.int32)   # in [0, Gz)
-
-    n_col = ngx * ngy
-    rows = ngz * cap
-    wyp = -(-wy // 8) * 8          # sublane-pad Wy with zero weight rows
-    qwlxt = (qv[:, :, None] * wlxt).reshape(n_col, wx, rows)
-    wlyt = wlyt5.reshape(n_col, wy, rows)
-    wlyt = jnp.pad(wlyt, ((0, 0), (0, wyp - wy), (0, 0)))
-    offsets = (tuple(int(opx[c // ngy]) for c in range(n_col)),
-               tuple(int(opy[c % ngy]) for c in range(n_col)))
-    pad_xy = (int(opx.max()) + wx, int(opy.max()) + wyp, gz)
-    qpad = spread_columns(qwlxt, wlyt, wzt5.reshape(n_col, order, rows),
-                          zorg.reshape(n_col, 1, rows), offsets, pad_xy,
-                          _spread_col_batch(n_col, wx, wyp, rows))
-    qgrid = fold_padded_axis(
-        fold_padded_axis(qpad, gx, order + spec.pme_slack[0], 0),
-        gy, order + spec.pme_slack[1], 1)
-
-    qhat = jnp.fft.rfftn(qgrid)
-    d = influence_function(grid, box, spec.alpha, order, dtype)
-    return jnp.sum(d * (qhat.real * qhat.real + qhat.imag * qhat.imag))
-
-
 def pme_cell_reciprocal_energy(blocks, ids, system) -> jax.Array:
     """SPME reciprocal energy spread from the shared cell-major blocks.
 
     The dense-separable spread (:func:`pme_reciprocal_energy`) streams
-    [N, G] weight matrices through HBM per grid column — measured 6.2 ms at
-    30k on v5e.  Here atoms are already binned into direct-space cells
+    [N, G] weight matrices through device memory per grid column.  Here
+    atoms are already binned into direct-space cells
     (cells.blockify — gather shared with the direct walk, so this path adds
     ZERO gathers/scatters): each cell's atoms can only touch a static
     [W, W, W] patch of the mesh (W = ceil(G/cells) + order + 2), so the
@@ -544,7 +398,7 @@ def pme_cell_reciprocal_energy(blocks, ids, system) -> jax.Array:
     nc = ngx * ngy * ngz
     qwlx = (qv[..., None] * wlx).reshape(nc, cap, wx)
     patches = _spread_patches(qwlx, wly.reshape(nc, cap, wy),
-                              wlz.reshape(nc, cap, wz), "x3")
+                              wlz.reshape(nc, cap, wz))
     patches = patches.reshape(ngx, ngy, ngz, wx, wy, wz)
 
     # overlap-add: fold z, then y, then x.  Each fold appends its grid axis
@@ -683,7 +537,7 @@ def pme_halo_local_mesh(g8, ids, system, dev,
     nc = gxl * ngy * ngz
     qwlx = (qv[..., None] * wlx).reshape(nc, cap, wx)
     patches = _spread_patches(qwlx, wly.reshape(nc, cap, wy),
-                              wlz.reshape(nc, cap, wz), "x3")
+                              wlz.reshape(nc, cap, wz))
     patches = patches.reshape(gxl, ngy, ngz, wx, wy, wz)
 
     b = _fold_axis(patches, orgz, gmz, patch_axis=5, cell_axis=2)

@@ -19,7 +19,7 @@ unbiased gradient); the O(p) variance is absorbed by a thermostat
 exactly like the random force of Langevin dynamics — use it for NVT/NPT
 sampling, never for microcanonical NVE or energy minimization.
 
-TPU shape: per step, sampling is three categorical draws from static
+Shape: per step, sampling is three categorical draws from static
 log-prob tables and the evaluation is one [N, p] phase build + two
 cos/sin contractions — no FFT, no k-grid, cost O(N p) with p ~ 100-500
 independent of box size.  That undercuts even the PME mesh cost for
@@ -116,8 +116,8 @@ def rbe_reciprocal_energy(positions, q, tables: RBETables, n_samples: int,
     k, k2, nonzero = sample_kvecs(tables, n_samples, key, dtype)
     k = jax.lax.stop_gradient(k)
     k2 = jax.lax.stop_gradient(k2)
-    # [N, p] phases; elementwise broadcast (a [N,3]x[3,p] dot would demote
-    # to bf16 on the TPU f32 path — repo precision rule)
+    # [N, p] phases; elementwise broadcast (an unpinned [N,3]x[3,p] f32 dot
+    # may run at reduced precision — repo precision rule)
     phase = (positions[:, 0:1] * k[None, :, 0]
              + positions[:, 1:2] * k[None, :, 1]
              + positions[:, 2:3] * k[None, :, 2])
@@ -144,11 +144,10 @@ def make_rbe_nb_energy_fn(system, n_samples: int, bonded=None,
     NaN-poison and the freshness guard — identical).  Requires a
     periodic orthorhombic system.
 
-    Choosing ``n_samples`` (p) — measured envelope at the 100k bench
-    config, thermalized liquid (round 4, BASELINE.md): single-draw force
-    noise / total-force RMS = 1.21 / 0.84 / 0.61 / 0.44 at p = 32 / 64 /
-    128 / 256 (exact 1/sqrt(p) scaling); NVT step cost 7.23 / 7.40 /
-    7.87 / 8.61 ms vs PME's 9.31.  The noise is zero-mean per step, so
+    Choosing ``n_samples`` (p) — measured noise at the 100k bench config,
+    thermalized liquid: single-draw force noise / total-force RMS = 1.21 /
+    0.84 / 0.61 / 0.44 at p = 32 / 64 / 128 / 256 (exact 1/sqrt(p)
+    scaling).  The noise is zero-mean per step, so
     the operative budget is the induced velocity kick 0.5*dt*dF/m
     against the thermostat's own stochastic kick
     ~sqrt(2*friction*dt)*v_thermal: keep the ratio under ~1/4.  At

@@ -173,22 +173,20 @@ class StaticSpec:
     direct_method: str = "dense"
     cell_grid: Optional[Tuple[int, int, int]] = None
     cell_capacity: Optional[int] = None
-    # Cell-walk pair-tile layout: "shift" = 14 per-shift [cap, cap] tiles
-    # (each j axis padded to the 128 vector lanes); "concat" = one
-    # [cap, 14*cap] tile with the half-shell j-slabs concatenated along the
-    # lane axis, so lane padding is paid once.  Measured winner everywhere
-    # (3.62 vs 3.96 ms at the 30k bench even at cap=128, and it un-deadens
-    # every sub-128-cap cutoff config — BASELINE.md cutoff-scan): concat is
-    # the create_system default ("auto" resolves to it).
+    # Cell-walk pair-tile layout: "shift" = 14 per-shift [cap, cap] tiles;
+    # "concat" = one [cap, 14*cap] tile with the half-shell j-slabs
+    # concatenated along the minor axis, so any padding of that axis to a
+    # hardware tile width is paid once.  concat is the create_system
+    # default ("auto" resolves to it).
     walk_layout: str = "concat"
     # Number of slices of the leading (x) cell axis the concat/ifull walk
     # scans over (1 = one unchunked tile).  Bounds live pair-tile memory to
     # tile_bytes / walk_chunks; create_system sizes it so the tile stays
-    # under ~320 MB (the unchunked 100k concat tile OOMed a 16 GB chip).
+    # under ~320 MB.
     walk_chunks: int = 1
-    # Reciprocal-space route: "auto" (PME on TPU f32, else xla), "xla"
-    # (classical Ewald, factorized matmuls), "pallas" (classical, fused tile
-    # kernel) or "pme" (smooth particle-mesh Ewald, pme.py).
+    # Reciprocal-space route: "auto" (energy.resolve_recip_method: PME for
+    # f32 on the cell route, else xla), "xla" (classical Ewald, factorized
+    # matmuls) or "pme" (smooth particle-mesh Ewald, pme.py).
     recip_method: str = "auto"
     # SPME mesh (per axis) and B-spline order; derived from (box, alpha,
     # ewald_tol) at build time.  None when pbc is False.
@@ -532,10 +530,9 @@ class CoulForce:
             cell_capacity).  Each axis may only be REDUCED from the
             derived count (wider cells keep cutoff coverage); raising one
             would shrink cells below the cutoff and silently miss pairs,
-            so it raises.  Main use: snapping gz to a multiple of 8 — gz
-            sits on the TPU sublane dim of every block/slab array, and
-            gz=9/10 grids measured a ~2x in-context direct-walk padding
-            cliff (tools/cutoff_scan.py round 3).
+            so it raises.  Main use: choosing a grid whose axes suit the
+            device's tiled layouts (gz is the second-minor dim of every
+            block/slab array) or a decomposition over devices.
           pme_grid: override the derived PME mesh [3] (expert knob — the
             analog of the reference framework's explicit PME-parameter
             setter).  Each axis may only be RAISED from the derived size
@@ -543,8 +540,7 @@ class CoulForce:
             silently break the tolerance contract, so it raises).  Main
             use: picking a mesh divisible by the cell grid so the
             cell-blocked spread's per-cell patch windows stay tight
-            (a 12-cell axis over an 80-point mesh measured recip
-            2.40 -> 8.31 ms at 100k, BASELINE.md).
+            (a mesh that does not divide evenly widens every patch).
         """
         n = len(self._charges)
         if n == 0:
@@ -553,18 +549,22 @@ class CoulForce:
         if direct_method not in ("auto", "dense", "cell"):
             raise ValueError(
                 f"unknown direct_method {direct_method!r}: expected 'auto', "
-                f"'dense' or 'cell' ('cell_pallas' was removed — the XLA "
-                f"roll walk measurably beats the hand kernels, BASELINE.md)")
-        if recip_method not in ("auto", "xla", "pallas", "pme"):
+                f"'dense' or 'cell' ('cell_pallas' was removed: the XLA "
+                f"roll walk replaced the hand kernels)")
+        if recip_method == "pallas":
+            raise ValueError(
+                "recip_method='pallas' was removed: the classical Ewald "
+                "structure factors are one GEMM that XLA runs as it stands; "
+                "use 'xla' (classical Ewald), 'pme' or 'auto'")
+        if recip_method not in ("auto", "xla", "pme"):
             raise ValueError(
                 f"unknown recip_method {recip_method!r}: expected 'auto', "
-                f"'xla', 'pallas' or 'pme'")
+                f"'xla' or 'pme'")
         if walk_layout not in ("auto", "shift", "concat"):
             raise ValueError(
                 f"unknown walk_layout {walk_layout!r}: expected 'auto', "
                 f"'shift' or 'concat' ('ifull', 'concat_mxu' and "
-                f"'concat_hyb' were measured slower and removed, "
-                f"BASELINE.md)")
+                f"'concat_hyb' were removed)")
         if walk_layout == "auto":
             walk_layout = "concat"
         if self._use_dispersion and not self._pbc:
@@ -602,7 +602,7 @@ class CoulForce:
             pme_grid = pme_grid_size(widths, alpha, self._ewald_tol,
                                      pme_order)
             if pme_grid_override is not None:
-                if recip_method in ("xla", "pallas"):
+                if recip_method == "xla":
                     raise ValueError(
                         f"pme_grid applies only to the PME reciprocal "
                         f"route; recip_method={recip_method!r} is a "
@@ -723,14 +723,14 @@ class CoulForce:
                     n_total_cells = ncells[0] * ncells[1] * ncells[2]
                     avg = n / n_total_cells
                     # ~4-sigma Poisson headroom for density fluctuations;
-                    # padded to a multiple of 8 (f32 sublane).  Utilization is
+                    # padded to a multiple of 8.  Utilization is
                     # quadratic in capacity, so keep the margin tight; overflow
                     # is detectable via cells.validate_cell_list.
                     capacity = int(np.ceil(max(avg + 4 * math.sqrt(max(avg, 1.0)) + 4, 8.0)))
                     capacity = ((capacity + 7) // 8) * 8
-                    # Snap UP to a lane-width multiple when close ([cap,
-                    # cap] pair blocks then tile the 128-wide VPU exactly).
-                    # Never snap DOWN: a 30k NVE run with the default
+                    # Snap UP to a multiple of 128 when close ([cap, cap]
+                    # pair blocks then fill 128-wide tiles exactly; whether
+                    # the card rewards it awaits an A/B).  Never snap DOWN: a 30k NVE run with the default
                     # capacity snapped 136 -> 128 (3.6 sigma) overflowed
                     # mid-trajectory and NaN-poisoned — 4-sigma headroom
                     # is the floor, not a target.
@@ -740,8 +740,9 @@ class CoulForce:
                 else:
                     capacity = int(cell_capacity)
 
-        # Chunk the concat/ifull walk so one pair tile stays under the
-        # memory budget (lane width rounds S*cap up to the 128 lanes).
+        # Chunk the concat walk so one pair tile stays under the memory
+        # budget (the tile's minor axis S*cap is counted rounded up to 128;
+        # the 320 MB budget awaits re-deriving for the card's memory).
         walk_chunks = 1
         if method == "cell" and walk_layout.startswith("concat"):
             s_width = 14

@@ -1,24 +1,22 @@
-"""Molecule-template detection — the TPU answer to per-term scatter kernels.
+"""Molecule-template detection — static slices in place of per-term scatters.
 
 The reference processes flux terms one CUDA thread per term with atomic
-scatters (calcChargeFlux.cu:29-289).  On TPU, gather/scatter run at a few
-elements per cycle (measured ~7-15 ns/element through XLA), so a 30k-atom
-water box spends milliseconds on what is microseconds of arithmetic.
+scatters (calcChargeFlux.cu:29-289).  Gathers and scatters break XLA's
+fusion and move data by index, while the arithmetic per term is tiny.
 
 The observation: flux/exclusion *indices* are static, and in real MD systems
 they almost always form a repeating per-molecule pattern — C copies of an
 s-atom molecule occupying the contiguous atom range [offset, offset + C*s),
 each copy carrying the same local term structure.  When that holds, every
 term evaluation reshapes to [C, s, 3] with *static* per-slot slices: no
-gathers, no scatters, and the autodiff backward is pad/slice — all fast on
-TPU.  Parameters (k, b, theta0, ...) may differ per copy; only the index
+gathers, no scatters, and the autodiff backward is pad/slice.  Parameters (k, b, theta0, ...) may differ per copy; only the index
 structure must repeat.
 
 Detection runs once at system build time in NumPy (the analog of the
 reference baking NUM_FLUX_* into NVRTC macros, CudaCoulKernels.cpp:377-389);
 systems that don't match simply fall back to the general scatter path.
 
-Heterogeneous topologies (round 3): real solvated systems are a LIST of
+Heterogeneous topologies: real solvated systems are a LIST of
 repeated blocks — a solute, thousands of waters, some ions — not one.
 :func:`detect_templates` partitions the term graph's connected components
 into maximal evenly-spaced runs of identical structure; each run becomes a
@@ -288,7 +286,7 @@ def detect_templates(kinds: Dict[str, np.ndarray],
 
 def detect_template(kinds: Dict[str, np.ndarray],
                     n_atoms: Optional[int] = None):
-    """Single-template detection (round 1/2 contract): succeeds only when
+    """Single-template detection: succeeds only when
     ONE block covers every row.  Kept for callers/tests that reason about
     the homogeneous case; new code uses :func:`detect_templates`.
 

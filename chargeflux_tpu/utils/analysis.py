@@ -3,7 +3,7 @@
 The reference inherits analysis from the OpenMM ecosystem (MDTraj etc.);
 a standalone engine ships the workhorse: the radial distribution function,
 computed as a chunked min-image pair histogram under jit (a [chunk, N]
-distance tile per scan step — no O(N^2) materialization, TPU-shaped).
+distance tile per scan step — no O(N^2) materialization).
 """
 
 from __future__ import annotations

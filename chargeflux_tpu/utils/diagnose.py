@@ -1,8 +1,7 @@
 """Host-side triage for NaN-poisoned trajectories.
 
-The engine makes failure VISIBLE by design (CLAUDE.md invariant; VERDICT
-r1 item 6): three distinct conditions poison the energy/forces to NaN
-inside jit rather than going silently wrong —
+The engine makes failure VISIBLE by design (CLAUDE.md invariant): three
+distinct conditions poison the energy/forces to NaN inside jit rather than going silently wrong —
 
 1. **cell-list overflow** at a rebuild: a density fluctuation put more
    atoms in a cell than the trace-time ``cell_capacity``

@@ -1,10 +1,10 @@
 """Tracing / profiling helpers.
 
 The reference's only observability is three couts and a printf kernel
-(SURVEY §5).  TPU equivalent: jax.profiler traces plus named scopes around
-the engine phases (flux / reciprocal / direct / chain rule) so per-phase
-cost shows up in xprof/tensorboard, and a host-side step timer that respects
-async dispatch.
+(SURVEY §5).  Here: jax.profiler traces plus named scopes around the engine
+phases (flux / reciprocal / direct / chain rule) so per-phase cost shows up
+in the profiler's trace, and a host-side step timer that respects async
+dispatch.
 """
 
 from __future__ import annotations
@@ -33,10 +33,10 @@ def trace(log_dir: str):
 
 
 class step_timer:
-    """Wall-clock timer that forces completion of a pytree of outputs.
+    """Wall-clock timer that waits for a pytree of outputs.
 
-    On tunneled/async backends block_until_ready may not wait for remote
-    completion; fetching a scalar does.  Use:
+    Dispatch is asynchronous, so the timed block must end in a wait for
+    its results:
 
         with step_timer() as t:
             out = step(...)
@@ -49,10 +49,7 @@ class step_timer:
         return self
 
     def sync(self, out):
-        leaves = jax.tree.leaves(out)
-        if leaves:
-            float(jax.numpy.sum(leaves[0]))
-        return out
+        return jax.block_until_ready(out)
 
     def __exit__(self, *exc):
         self.elapsed = time.perf_counter() - self._t0

@@ -148,7 +148,7 @@ def _element_from_name(name4: str) -> str:
     ``name4[0]`` is blank or a digit); a name starting at column 13 is a
     two-letter element candidate — accepted only when the capitalized
     pair is a known element, so 'HW1'/'HB2' stay H, 'CL'/'NA' become
-    Cl/Na (ADVICE round 2: first-char-only misread Cl/Na/Mg as C/N/M)."""
+    Cl/Na (first-char-only would misread Cl/Na/Mg as C/N/M)."""
     stripped = name4.strip().lstrip("0123456789")
     if not stripped or not stripped[0].isalpha():
         return "X"

@@ -1,7 +1,7 @@
 // Native host runtime for chargeflux_tpu.
 //
-// The reference implements its entire runtime in C++/CUDA; the TPU engine's
-// hot path is XLA/Pallas, and this library supplies the host-side native
+// The reference implements its entire runtime in C++/CUDA; this engine's
+// hot path is XLA, and this library supplies the host-side native
 // services around it:
 //
 //   * cell-list statistics (histogram / max occupancy) for capacity

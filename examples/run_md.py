@@ -25,7 +25,7 @@ if "--cpu" in sys.argv:
     jax.config.update("jax_platforms", "cpu")
 
 # Strip the "--pdb <path>" pair before positional parsing (int(sys.argv[1])
-# would otherwise choke on the flag itself — ADVICE round 2).
+# would otherwise choke on the flag itself).
 PDB_PATH = None
 if "--pdb" in sys.argv:
     i = sys.argv.index("--pdb")

@@ -1,11 +1,10 @@
 """bench.py config plumbing: the capacity re-provision must preserve
 every trace-time override of the original spec.
 
-Regression for ADVICE r4 (medium): _with_capacity dropped
-cell_grid/pme_grid, silently rebuilding the forced 8^3 splitting-knob
-grid as the derived 9^3 walk-cliff grid whenever burn-in re-provisioned
-capacity — the bench then measured a different program than the config
-it reports."""
+Regression: _with_capacity once dropped cell_grid/pme_grid, silently
+rebuilding the forced 8^3 splitting-knob grid as the derived 9^3 grid
+whenever burn-in re-provisioned capacity — the bench then measured a
+different program than the config it reports."""
 
 import sys
 

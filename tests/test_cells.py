@@ -94,7 +94,7 @@ def test_cell_components_match_dense():
 
 def test_overflow_poisons_energy_in_jit():
     """A cell past capacity must make the energy visibly NaN inside the jit
-    step, not silently drop pair interactions (VERDICT r1 item 6)."""
+    step, not silently drop pair interactions."""
     import dataclasses
 
     from chargeflux_tpu.energy import _energy_and_forces
@@ -211,10 +211,9 @@ def test_walk_layouts_agree():
 
 
 def test_walk_layout_rejects_removed_variants():
-    """The MXU-offload layouts (concat_hyb / concat_mxu) were measured
-    2-2.6x slower at the fused-tile level on TPU (r2b_walk_mxu: vpu 1.48
-    vs mxu 2.81 / hyb 3.85 ms) and removed per house style; the builder
-    names them in its error so users find the history."""
+    """The removed matmul-offload layouts (concat_hyb / concat_mxu) and
+    ifull are rejected; the builder names them in its error so users find
+    the history."""
     force, pos, _, box = water_box(n_side=4, seed=3)
     for layout in ("concat_hyb", "concat_mxu", "ifull", "bogus"):
         with pytest.raises(ValueError, match="walk_layout"):
@@ -269,10 +268,10 @@ def test_rank_into_slots_masked_branches(force_sort):
 def test_cell_grid_override_matches_default():
     """create_system(cell_grid=...) may reduce axes (wider cells keep
     coverage) or raise them up to the zero-skin bound floor(width/cutoff)
-    (round 4: thinner Verlet skin, guarded by the freshness poison) —
+    (thinner Verlet skin, guarded by the freshness poison) —
     energies/forces must be identical to the derived grid either way;
     past the zero-skin bound it must raise (cells below the cutoff would
-    miss pairs).  Expert knob for the grid-padding cliff (round 3)."""
+    miss pairs).  Expert knob for the device's tiled layouts."""
     force, pos, _, box = water_box(n_side=10, flux="bond_angle", cutoff=0.6,
                                    seed=8)
     x = jnp.asarray(pos)

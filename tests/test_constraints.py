@@ -221,7 +221,7 @@ def test_rigid_langevin_nb_cell_route():
 
 
 # ---------------------------------------------------------------------------
-# General distance constraints (parallel SHAKE/RATTLE, round 4)
+# General distance constraints (parallel SHAKE/RATTLE)
 # ---------------------------------------------------------------------------
 
 

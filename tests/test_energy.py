@@ -31,7 +31,7 @@ def test_nopbc_small_cluster(flux):
 
 
 def test_nopbc_125_water_cluster():
-    """The BASELINE.md 125-water config: f64 parity with the oracle."""
+    """The 125-water cluster: f64 parity with the oracle."""
     force, positions, _ = water_cluster(n_side=5, flux="bond_angle", seed=2)
     system = force.create_system(dtype=jnp.float64)
     x = jnp.asarray(positions)
@@ -62,7 +62,7 @@ def test_pbc_ewald_small_box(flux):
 
 
 def test_pbc_216_water_box():
-    """The BASELINE.md 216-water Ewald config: <=1e-10 relative in f64."""
+    """The 216-water Ewald box: <=1e-10 relative in f64."""
     force, positions, _, box = water_box(n_side=6, flux="bond_angle", seed=6)
     system = force.create_system(box=box, dtype=jnp.float64)
     x = jnp.asarray(positions)

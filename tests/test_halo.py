@@ -56,7 +56,7 @@ def test_halo_forces_match_single_device():
 @pytest.mark.parametrize("decomp", [(4, 2), (2, 4), (2, 2), (1, 4)])
 def test_halo_2d_decomposition_matches_single_device(decomp):
     """The 2-D x-by-y brick decomposition (two-stage halo exchange; the
-    pod-slice scale-out past gx devices) must match the single-device
+    scale-out past gx devices) must match the single-device
     engine for energy AND forces, on both recip routes."""
     system, x = _small_system()
     ndev = decomp[0] * decomp[1]
@@ -121,7 +121,7 @@ def test_halo_overflow_poisons():
 
 
 def test_halo_100k_cell_path_equality():
-    """VERDICT r1 item 5: 100k-atom cell-path equality on the 8-device CPU
+    """100k-atom cell-path equality on the 8-device CPU
     mesh (kmax shrunk — the reciprocal term is index-chunked and orthogonal
     to the halo direct space under test).  f64: this short-cutoff config has
     ~2.8e7-magnitude self/direct/exclusion components cancelling to ~4e5, so
@@ -144,7 +144,7 @@ def test_halo_100k_cell_path_equality():
 def test_halo_collective_structure():
     """The compiled halo program must communicate by boundary-plane
     ppermutes + psum assembly ONLY: any all-gather/all-to-all means the
-    sharding silently degraded to replication (the round-1 pathology the
+    sharding silently degraded to replication (the pathology the
     halo design replaces).  Counts from the 4-device compile: 3
     collective-permutes (x-boundary planes + force transpose), 4
     all-reduces (energy/S(k)/force psums) — pinned with slack."""
@@ -242,7 +242,7 @@ def test_halo_devices_grid_rounding():
     mesh = Mesh(np.array(jax.devices()[:4]), ("space",))
     e_h = float(make_halo_energy_fn(s_halo, mesh)(x))
     assert abs(e_h - e_ref) <= 1e-12 * abs(e_ref)
-    # a device count past gx lands on the 2-D x-by-y sizing (round 4)
+    # a device count past gx lands on the 2-D x-by-y sizing
     from chargeflux_tpu.parallel.halo import halo_decomp
     s_2d = force.create_system(box=box, dtype=jnp.float64,
                                direct_method="cell", halo_devices=8)
@@ -274,7 +274,7 @@ def test_halo_devices_forces_cell_route():
 
 
 def test_halo_traced_box_moves_and_guards():
-    """NPT x halo (round 4): the halo energy takes a (traced) box arg —
+    """NPT x halo: the halo energy takes a (traced) box arg —
     a small volume move matches the single-chip with_box energy/forces
     exactly; a shrink past grid validity NaN-poisons in-jit (the
     energy.py guard pattern); an *invalid creation box* still refuses at
@@ -338,10 +338,10 @@ def test_npt_over_halo_matches_single_chip():
 
 @pytest.mark.slow
 def test_halo_slab_binning_scales_to_1m_atoms():
-    """The round-2 flat [N, n_local] one-hot walled the halo path at ~1M
+    """A flat [N, n_local] one-hot would wall the halo path at ~1M
     atoms; the shared two-stage ranking must bin a 1M-atom slab with
     bounded intermediates (largest: [N, gxl*gy] = 128M int32) and account
-    for every owned atom.  CPU shape-scale proof (VERDICT r2 item 6)."""
+    for every owned atom.  CPU shape-scale proof."""
     from chargeflux_tpu.parallel.halo import _local_bin
 
     n, ndev = 1_000_000, 8

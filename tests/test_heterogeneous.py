@@ -75,7 +75,7 @@ def test_heterogeneous_oracle_parity_cell(salty_box):
     if ragged:
         # one water drops its H-H exclusion: the run SPLITS around it —
         # two templates plus the odd molecule's rows as scatter remainder
-        # (round 3 multi-template; round 2 declined entirely)
+        # (multi-template detection)
         assert ts is not None and len(ts.templates) == 2
         assert sum(c for _, c in ts.remainder) == 2
     else:
@@ -99,7 +99,7 @@ def test_heterogeneous_manual_matches_autodiff(salty_box):
 
 
 # ---------------------------------------------------------------------------
-# Solvated chain solute (round 3 multi-template: template + scatter remainder)
+# Solvated chain solute (multi-template: template + scatter remainder)
 # ---------------------------------------------------------------------------
 
 

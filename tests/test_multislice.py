@@ -1,4 +1,4 @@
-"""Multi-slice (DCN-hierarchy) replica composition (parallel/multislice.py).
+"""Two-level (replica x space) composition (parallel/multislice.py).
 
 Validated on a 2x4 virtual mesh: replicas sharded over the "slice" axis,
 per-replica work sharded over "space" (halo path when the grid divides it);

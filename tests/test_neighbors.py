@@ -81,9 +81,8 @@ def test_nb_trajectory_matches_per_step_rebuild():
 
 
 def test_packed_trajectory_matches_stepwise_api():
-    """nve_trajectory_nb's packed [N, 9] scan carry (the perf fix for the
-    ~0.3 ms/step narrow-carry overhead, tools/step_pieces.py) must be a pure
-    layout change: identical physics to driving nve_step_nb by hand."""
+    """nve_trajectory_nb's packed [N, 9] scan carry (one buffer in place of
+    three narrow [N, 3] carries) must be a pure layout change: identical physics to driving nve_step_nb by hand."""
     from chargeflux_tpu.integrate import kinetic_energy, nve_step_nb
 
     system, x, masses = _system()
@@ -138,8 +137,8 @@ def test_zero_skin_state_fresh_at_rebuild_positions():
 
 
 def test_packed_carry_modes_are_pure_layout_changes():
-    """The PACKED_CARRY_MODE representations ("barrier", "flat" — the
-    round-4 hetero scan-boundary candidates) must be bitwise identical to
+    """The PACKED_CARRY_MODE representations ("barrier", "flat") must be
+    bitwise identical to
     the default packed [N, 9] carry: same arithmetic, different buffer
     layout only."""
     import chargeflux_tpu.integrate as integrate

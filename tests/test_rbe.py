@@ -33,8 +33,7 @@ def test_energy_unbiased():
     spec = system.spec
     # converged classical reference (generous kmax)
     kmax = tuple(k + 6 for k in spec.kmax)
-    e_ref = float(reciprocal_energy(x, q, system.box, spec.alpha, kmax,
-                                    method="xla"))
+    e_ref = float(reciprocal_energy(x, q, system.box, spec.alpha, kmax))
     tables = rbe_tables(box, spec.alpha)
     p = 64
     est = jax.jit(lambda k: rbe_reciprocal_energy(x, q, tables, p, k))
@@ -70,7 +69,7 @@ def test_forces_unbiased():
     f_ref = np.asarray(-jax.grad(
         lambda xx: reciprocal_energy(
             xx, effective_charges(xx, system), system.box, spec.alpha,
-            kmax, method="xla"))(x))
+            kmax))(x))
     tables = rbe_tables(box, spec.alpha)
     p = 64
     gfn = jax.jit(jax.grad(lambda xx, k: rbe_reciprocal_energy(

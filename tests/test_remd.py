@@ -91,7 +91,7 @@ def test_remd_sharded_replicas_match_single_device():
     """REMD under a replica-sharded mesh must equal the unsharded run
     bitwise-to-tolerance: the swap sweep's [R]-permutation gather crosses
     device boundaries (a configuration migrating between temperature
-    slots = a cross-device copy over ICI on real hardware)."""
+    slots = a cross-device copy on real hardware)."""
     from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
     r = 8

@@ -111,8 +111,8 @@ def test_replica_ensemble_matches_loop():
 
 
 def test_replica_nve_trajectory_matches_stepwise():
-    """The flat [R, N*9]-carry ensemble trajectory (the perf layout,
-    tools/replica_carry.py) must be a pure layout change: identical physics
+    """The flat [R, N*9]-carry ensemble trajectory (the perf layout) must
+    be a pure layout change: identical physics
     to vmapped stepwise replica_nve_step."""
     from chargeflux_tpu.integrate import init_state, make_energy_fn
     from chargeflux_tpu.parallel.replicas import (

@@ -2,6 +2,7 @@
 
 import os
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -25,9 +26,6 @@ def test_checkpoint_roundtrip(tmp_path):
         np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
 
 
-import jax  # noqa: E402  (used above in tree.leaves)
-
-
 def test_coulforce_dict_roundtrip():
     force, pos, _ = water_cluster(n_side=2, flux="water", seed=72)
     force.setCutoffDistance(0.75)
@@ -47,7 +45,7 @@ def test_coulforce_dict_roundtrip():
 
 
 def test_load_checkpoint_rejects_mismatched_template(tmp_path):
-    """Structural validation (ADVICE r1): same leaf count, different shapes
+    """Structural validation: same leaf count, different shapes
     or treedef must raise, not silently transpose arrays."""
     import pytest
 
@@ -69,16 +67,50 @@ def test_load_checkpoint_rejects_mismatched_template(tmp_path):
     assert step == 3 and back["a"].shape == (4, 3)
 
 
+def test_compile_cache_dir_honours_env(monkeypatch, tmp_path):
+    """JAX_COMPILATION_CACHE_DIR, when set, is the cache directory and the
+    helper sets no other."""
+    from chargeflux_tpu.utils import compile_cache
+
+    old = (jax.config.jax_compilation_cache_dir,
+           jax.config.jax_persistent_cache_min_compile_time_secs)
+    monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(tmp_path))
+    try:
+        assert compile_cache.enable_compile_cache(3.0) == str(tmp_path)
+        assert jax.config.jax_compilation_cache_dir == str(tmp_path)
+        assert jax.config.jax_persistent_cache_min_compile_time_secs == 3.0
+    finally:
+        jax.config.update("jax_compilation_cache_dir", old[0])
+        jax.config.update("jax_persistent_cache_min_compile_time_secs",
+                          old[1])
+
+
+def test_compile_cache_dir_default_is_fixed(monkeypatch):
+    """Without the variable the cache sits at the fixed <checkout>/.jax_cache
+    (the key includes the path, so it must not move between runs)."""
+    import os
+
+    from chargeflux_tpu.utils import compile_cache
+
+    monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+    path = compile_cache.compile_cache_dir()
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    assert path == os.path.join(root, ".jax_cache")
+    assert path == compile_cache.compile_cache_dir()
+
+
 def test_pallas_recip_rejects_f64():
+    """recip_method='pallas' (the removed fused structure-factor kernel)
+    is rejected at build time with a message that names the routes left."""
     import pytest
 
-    from chargeflux_tpu.ewald import structure_factors
+    from chargeflux_tpu.models import water_box
 
-    x = jnp.zeros((4, 3), jnp.float64)
-    q = jnp.zeros((4,), jnp.float64)
-    with pytest.raises(ValueError, match="f32"):
-        structure_factors(x, q, jnp.ones(3, jnp.float64), (3, 3, 3),
-                          method="pallas")
+    force, _, _, box = water_box(n_side=4, flux="bond_angle", cutoff=0.62,
+                                 density_spacing=0.62)
+    for dtype in (jnp.float32, jnp.float64):
+        with pytest.raises(ValueError, match="'pallas' was removed.*'xla'"):
+            force.create_system(box=box, dtype=dtype, recip_method="pallas")
 
 
 def test_create_system_rejects_unknown_methods():
@@ -434,7 +466,7 @@ def test_water_from_pdb_survives_resseq_wrap(tmp_path):
     """PDB resseq wraps at 9999, so a >9999-water box repeats residue
     numbers.  Grouping must follow CONTIGUOUS (resname, resseq) runs, not
     a global dict key (which collides wrapped ids and dies with
-    'expected 1 O + 2 H' — ADVICE round 2)."""
+    'expected 1 O + 2 H')."""
     from chargeflux_tpu.models import water_box, water_system_from_pdb
     from chargeflux_tpu.utils import write_pdb
 
@@ -454,7 +486,7 @@ def test_water_from_pdb_survives_resseq_wrap(tmp_path):
 def test_read_pdb_two_letter_element_fallback(tmp_path):
     """When element columns 77-78 are empty, the atom-name fallback must
     keep two-letter elements (Cl, Na) and not misread hydrogens named
-    HW1/1HH1 (ADVICE round 2)."""
+    HW1/1HH1)."""
     from chargeflux_tpu.utils import read_pdb
 
     lines = ["CRYST1   20.000   20.000   20.000  90.00  90.00  90.00 P 1"]

@@ -49,6 +49,7 @@ MODULES = [
     "chargeflux_tpu.utils.analysis",
     "chargeflux_tpu.utils.diagnose",
     "chargeflux_tpu.utils.profiling",
+    "chargeflux_tpu.utils.compile_cache",
     "chargeflux_tpu.runtime.native",
 ]
 
